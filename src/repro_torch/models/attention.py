@@ -1,0 +1,124 @@
+"""Attention blocks: GQA/MHA with RoPE and optional qk-norm.
+
+Two entry modes share weights:
+  * ``attention``: full-sequence attention (train / prefill), through the
+    plain-torch ``_sdpa`` (``impl='sdpa'``) or the FlashAttention kernel
+    (``impl='flash'``, ``kernels.ops.flash_attention``);
+  * ``decode_attention``: one token against a (B, S_max, Hkv, D) KV cache.
+
+On one card the reference's tensor-parallel KV head expansion is a no-op,
+so it has no counterpart here.  Attention bias, sliding windows, M-RoPE,
+MLA and cross-attention belong to families not ported yet; ``Model``
+rejects their configs.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import common
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """Projection weights, (d_in, d_out) and applied as ``x @ w``."""
+
+    def __init__(self, cfg, dtype, device="cuda"):
+        super().__init__()
+        dev = common.resolve_device(device)
+        d, hd = cfg.d_model, cfg.head_dim
+        nq, nkv = cfg.num_heads, cfg.num_kv_heads
+
+        def w(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev),
+                                requires_grad=False)
+
+        self.wq, self.wk, self.wv = w(d, nq * hd), w(d, nkv * hd), \
+            w(d, nkv * hd)
+        self.wo = w(nq * hd, d)
+        if cfg.qk_norm:
+            self.q_norm = common.Norm(hd, "rms", dev)
+            self.k_norm = common.Norm(hd, "rms", dev)
+
+    def init_(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            common.dense_init_(w, gen)
+
+
+def _project_qkv(p, cfg, x, positions):
+    """Returns q: (B,S,Hq,D), k/v: (B,S,Hkv,D) (rope applied)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    q = q.reshape(b, s, cfg.num_heads, hd)
+    k = k.reshape(b, s, cfg.num_kv_heads, hd)
+    v = v.reshape(b, s, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = common.rmsnorm(p.q_norm, q, cfg.norm_eps)
+        k = common.rmsnorm(p.k_norm, k, cfg.norm_eps)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, *, causal):
+    """Plain attention. q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D); the causal
+    rule is top-left (query row i sees keys j <= i)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    groups = hq // hkv
+    qg = q.reshape(b, sq, hkv, groups, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) * (d ** -0.5)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        logits = logits.masked_fill(qpos < kpos, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention(p, cfg, x, positions, *, causal=True, impl="sdpa"):
+    """Full-sequence attention (train / prefill). x: (B,S,d)."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    if impl == "flash":
+        out = ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal).transpose(1, 2)
+    elif impl == "sdpa":
+        out = _sdpa(q, k, v, causal=causal)
+    else:
+        raise ValueError(f"attn impl must be 'sdpa' or 'flash', got {impl!r}")
+    b, s = x.shape[:2]
+    return out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p.wo
+
+
+def decode_attention(p, cfg, x, positions, cache_k, cache_v):
+    """One-token decode. x: (B,1,d); cache_k/v: (B,S_max,Hkv,D).
+
+    Writes this token's k/v into ``cache_k``/``cache_v`` in place (the
+    reference's one-hot blend builds new arrays; the values are the same)
+    and returns the attention output (B,1,d)."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    b, _, hkv, d = k.shape
+    smax = cache_k.shape[1]
+    slot = positions[:, 0].clamp(max=smax - 1)
+    rows = torch.arange(b, device=x.device)
+    cache_k[rows, slot] = k[:, 0]                      # in place
+    cache_v[rows, slot] = v[:, 0]
+
+    groups = cfg.num_heads // hkv
+    qg = q.reshape(b, hkv, groups, d)                  # (B,Hkv,G,D) (Sq=1)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                          cache_k.float()) * (d ** -0.5)
+    kpos = torch.arange(smax, device=x.device)[None, :]
+    valid = kpos <= positions[:, :1]                   # causal up to current
+    logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, cache_v.float())
+    out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
+    return out @ p.wo

@@ -1,0 +1,222 @@
+"""Port dense models against the JAX models at reduced size.
+
+The JAX model is initialised from a PRNG key, its parameters converted
+through numpy with ``params_from_jax``, so both packages compute with
+bit-identical weights.  ``attn_impl='pallas'`` runs the Pallas kernel in
+interpret mode on the CPU; the port's ``'flash'`` runs the plain twin.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import registry as jreg  # noqa: E402
+from repro.models import get_model  # noqa: E402
+from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.models import Model, common, convert, mlp  # noqa: E402
+
+# f32 logits are O(1-10); both sides compute the same f32 arithmetic in
+# another order.  bf16 logits here stay below 8, where one bf16 ulp is
+# 2^-5; the frameworks round activations at other places (e.g. silu in
+# bf16 vs f32), so two ulps are allowed.
+TOL_F32 = 1e-4
+TOL_BF16 = 2 * 2.0 ** -5
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(arch, dtype):
+    jcfg = dataclasses.replace(jreg.get(arch).reduced(), dtype=dtype)
+    jm = get_model(jcfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, params)
+    cfg = convert.config_from_jax(jcfg)
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(convert.params_from_jax(cfg, tree))
+    return jcfg, jm, params, tree, cfg, model
+
+
+def _tokens(cfg, b=2, s=16, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    return toks, pos
+
+
+def _with_impl(model, cfg, impl):
+    model.cfg = dataclasses.replace(cfg, attn_impl=impl)
+    return model
+
+
+def test_config_conversion_maps_attn_impl():
+    for jname, tname in (("xla", "sdpa"), ("pallas", "flash")):
+        jcfg = dataclasses.replace(jreg.get("granite-8b"), attn_impl=jname)
+        cfg = convert.config_from_jax(jcfg)
+        assert cfg.attn_impl == tname
+        assert dataclasses.replace(cfg, attn_impl="xla") == dataclasses.replace(
+            treg.get("granite-8b"), attn_impl="xla")
+    assert set(treg.ARCHS) == set(jreg.ARCHS)
+    assert treg.get("phi3-mini-3.8b").param_count() == \
+        jreg.get("phi3-mini-3.8b").param_count()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_params_from_jax_round_trip(dtype):
+    jcfg, _, _, tree, cfg, model = _pair("phi3-mini-3.8b", dtype)
+    sd = model.state_dict()
+    flat = dict(convert._flatten({k: v for k, v in tree.items()
+                                  if k != "blocks"}))
+    for name, a in flat.items():
+        assert sd[name].dtype == (torch.float32 if "norm" in name
+                                  else common.DTYPES[dtype])
+        np.testing.assert_array_equal(sd[name].float().numpy(),
+                                      np.asarray(a, np.float32))
+    for name, a in convert._flatten(tree["blocks"]):
+        for i in range(cfg.num_layers):
+            np.testing.assert_array_equal(
+                sd[f"blocks.{i}.{name}"].float().numpy(),
+                np.asarray(a[i], np.float32))
+    n_leaves = len(jax.tree.leaves(tree))
+    n_blocks = len(jax.tree.leaves(tree["blocks"]))
+    assert len(sd) == n_leaves - n_blocks + n_blocks * cfg.num_layers
+
+
+def test_params_from_jax_rejects_layer_mismatch():
+    _, _, _, tree, cfg, _ = _pair("phi3-mini-3.8b", "float32")
+    with pytest.raises(ValueError, match="layers"):
+        convert.params_from_jax(
+            dataclasses.replace(cfg, num_layers=cfg.num_layers + 1), tree)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "granite-8b",
+                                  "qwen3-8b"])
+def test_prefill_logits_match_f32(arch, impl):
+    jcfg, jm, params, _, cfg, model = _pair(arch, "float32")
+    toks, pos = _tokens(cfg)
+    jm = get_model(dataclasses.replace(jcfg, attn_impl=impl))
+    want = np.asarray(jm.prefill(params, {"tokens": jnp.asarray(toks),
+                                          "positions": jnp.asarray(pos)}))
+    m = _with_impl(model, cfg, convert.ATTN_IMPLS[impl])
+    got = m.prefill({"tokens": torch.from_numpy(toks).long(),
+                     "positions": torch.from_numpy(pos).long()})
+    assert got.shape == (2, 16, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL_F32,
+                               atol=TOL_F32)
+
+
+def test_prefill_logits_match_bf16_pallas():
+    jcfg, _, params, _, cfg, model = _pair("phi3-mini-3.8b", "bfloat16")
+    toks, pos = _tokens(cfg, seed=1)
+    jm = get_model(dataclasses.replace(jcfg, attn_impl="pallas"))
+    want = np.asarray(jm.prefill(params, {"tokens": jnp.asarray(toks),
+                                          "positions": jnp.asarray(pos)}),
+                      np.float32)
+    m = _with_impl(model, cfg, "flash")
+    got = m.prefill({"tokens": torch.from_numpy(toks).long(),
+                     "positions": torch.from_numpy(pos).long()})
+    assert got.dtype == torch.bfloat16
+    assert np.abs(want).max() < 8
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=TOL_BF16)
+    assert (got.float().numpy().argmax(-1) == want.argmax(-1)).mean() > 0.9
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "granite-8b",
+                                  "qwen3-8b"])
+def test_decode_steps_match_logits_and_cache(arch):
+    """Three decode steps; the cache is as long as the step count minus
+    one, so the last step exercises the ``min(pos, smax - 1)`` clamp."""
+    jcfg, jm, params, _, cfg, model = _pair(arch, "float32")
+    b, smax = 2, 2
+    jcache = jm.init_cache(b, smax)
+    tcache = model.init_cache(b, smax)
+    toks, _ = _tokens(cfg, b=b, s=3, seed=2)
+    for t in range(3):
+        tok = toks[:, t:t + 1]
+        pos = np.full((b, 1), t, np.int32)
+        jl, jcache = jax.jit(jm.decode_step)(
+            params, jcache, {"tokens": jnp.asarray(tok),
+                             "positions": jnp.asarray(pos)})
+        tl, tcache = model.decode_step(
+            tcache, {"tokens": torch.from_numpy(tok).long(),
+                     "positions": torch.from_numpy(pos).long()})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   rtol=TOL_F32, atol=TOL_F32)
+        for k in ("k", "v"):
+            np.testing.assert_allclose(tcache[k].numpy(),
+                                       np.asarray(jcache[k]),
+                                       rtol=TOL_F32, atol=TOL_F32)
+
+
+def test_rope_and_norms_match():
+    from repro.models import common as jcommon
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 8, 4, 32)).astype(np.float32)
+    pos = rng.integers(0, 1000, (2, 8)).astype(np.int32)
+    want = np.asarray(jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                         1e4))
+    got = common.apply_rope(torch.from_numpy(x), torch.from_numpy(pos).long(),
+                            1e4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    scale = rng.standard_normal(32).astype(np.float32)
+    want = np.asarray(jcommon.rmsnorm({"scale": jnp.asarray(scale)},
+                                      jnp.asarray(x), 1e-6))
+    p = common.Norm(32, "rms", "cpu")
+    p.scale.data = torch.from_numpy(scale)
+    got = common.rmsnorm(p, torch.from_numpy(x), 1e-6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    bias = rng.standard_normal(32).astype(np.float32)
+    want = np.asarray(jcommon.layernorm(
+        {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+        jnp.asarray(x), 1e-5))
+    p = common.Norm(32, "layernorm", "cpu")
+    p.scale.data, p.bias.data = torch.from_numpy(scale), \
+        torch.from_numpy(bias)
+    got = common.apply_norm(p, torch.from_numpy(x), 1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "gelu"])
+def test_mlp_matches(kind):
+    from repro.models import mlp as jmlp
+    jp = jmlp.init_mlp(jax.random.PRNGKey(5), 64, 96, jnp.float32, kind)
+    if kind == "gelu":
+        rng = np.random.default_rng(6)
+        jp = dict(jp, bi=jnp.asarray(rng.standard_normal(96), jnp.float32),
+                  bo=jnp.asarray(rng.standard_normal(64), jnp.float32))
+    p = mlp.MLP(64, 96, torch.float32, kind, "cpu")
+    p.load_state_dict({k: torch.from_numpy(np.array(v))
+                       for k, v in jp.items()})
+    x = np.random.default_rng(7).standard_normal((2, 5, 64)).astype(
+        np.float32)
+    want = np.asarray(jmlp.mlp(jp, jnp.asarray(x), kind))
+    got = mlp.mlp(p, torch.from_numpy(x), kind)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("deepseek-v2-lite-16b", {}), ("falcon-mamba-7b", {}),
+    ("qwen2-vl-7b", {}), ("whisper-large-v3", {}),
+    ("phi3-mini-3.8b", {"attn_bias": True}),
+    ("phi3-mini-3.8b", {"sliding_window": 8})])
+def test_other_families_not_ported_yet(arch, change):
+    cfg = dataclasses.replace(treg.get(arch).reduced(), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(cfg, device="cpu")
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default is satisfiable")
+    cfg = treg.get("phi3-mini-3.8b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.Norm(8)
