@@ -5,17 +5,28 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
   1. build     compile every CUDA kernel of the port from src/ (nvcc,
-               sm_90a), all sources at once;
+               sm_90a), one nvcc per source, all started together;
   2. kernels   hold each kernel against its plain-torch twin on the card at
-               the main path's shapes and a few edge shapes;
+               the main paths' shapes and a few edge shapes: K5 flash
+               attention (f32, bf16, int8), K3 grouped and K4 dispersed
+               GEMM (f32, bf16, int8 exactly; K3 bitwise equal across W),
+               K6 RMSNorm;
   3. prefill   full-width phi3-mini-3.8b (random weights from a seeded
                generator): Model.prefill on 4 x 512 tokens with the flash
                kernel vs the plain sdpa path, counting kernel launches, and
                a reduced f32 model on the card vs the same on the CPU;
   4. serve     a ServeEngine with dispersed KV pages answers a seeded
                steady-traffic scenario at full width;
-  5. timing    each kernel at its prefill shape beside its bound, its plain
-               twin and the library call computing the same function.
+  5. roofline  the measured roofline (repro_torch.benchmarks.roofline) on
+               the card: every row's schedule bytes agree with the closed
+               form, the row count is the reference grid's, and K3, K4 and
+               K5 were launched; one call's time from idle vs back to back
+               vs the host's issue time at two points; then
+               vmem_dispersion's spot check;
+  6. timing    each kernel at its main shape (K5 at the prefill shape, K3
+               W=1/W=4 and K4 at granite-8b's MLP GEMM, K6 on its rows)
+               beside its bound, its plain twin and the library call
+               computing the same function.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line {"ok": true, "device": {...}}.  Without a CUDA
@@ -37,14 +48,22 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.benchmarks import roofline, vmem_dispersion  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import dispersed_gemm as dg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels.ref import cast_like  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serve import TRAFFIC_MIXES, ServeEngine, generate  # noqa: E402
 
 ARCH = "phi3-mini-3.8b"
 PREFILL_BATCH, PREFILL_LEN = 4, 512
+# granite-8b's MLP GEMM, vmem_dispersion's shape: tokens x d x d_ff
+GEMM_M, GEMM_K, GEMM_N = 8192, 4096, 14336
+GEMM_BLOCK_M, GEMM_BLOCK_K = 128, 512
+NORM_ROWS, NORM_D = 8192, 4096
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
               torch.float32: 67e12}            # FP32 outside tensor cores
@@ -52,6 +71,21 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
 # order and exp implementation over up to 512 terms.  bf16: both accumulate
 # in f32 and round the output once, so they differ by about one bf16 ulp.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# GEMM (K3/K4) vs plain twin, (atol, rtol).  f32: FP32 FMAs in one chain
+# vs cuBLAS's f32 order (no TF32).  bf16: one bf16 ulp (2^-7 relative),
+# plus an absolute term for outputs near 0, where the f32 summation order
+# (about 1e-3 at k = 4096) decides the rounding.  int8: exact.
+GEMM_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2.0 ** -7)}
+# RMSNorm vs plain twin: f32 rsqrtf and another summation order; bf16 one
+# ulp of the output.
+NORM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
+# K5 on int8 vs its twin (check_int8_attention): outputs whose f32 value
+# lies within INT8_NEAR of a nonzero integer may differ by 1, and at most
+# INT8_EXCUSED_SHARE of the outputs are excused so; all others are equal.
+# INT8_NEAR is about 100x the f32 difference of kernel and twin that
+# int8-valued inputs (scores of order 10) give, ~1e-5.
+INT8_NEAR = 2.0 ** -10
+INT8_EXCUSED_SHARE = 0.01
 
 
 def check(cond: bool, msg: str) -> None:
@@ -81,15 +115,23 @@ def cuda_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
 
 # ----------------------------------------------------------------- kernels --
 
+def randn(gen, shape, dtype) -> torch.Tensor:
+    """Standard-normal values on the card; int8 takes 2 * N(0, 1)
+    truncated (values in about [-8, 8])."""
+    if dtype == torch.int8:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return cast_like(2 * x, torch.int8)
+    return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+
 def _qkv(gen, q_shape, kv_shape, dtype, *, bshd=False):
     """Random q, k, v on the card; ``bshd`` makes them (B,S,H,D) tensors
     viewed as (B,H,S,D), the strided layout the model's prefill passes."""
     def one(shape):
         if bshd:
             b, h, s, d = shape
-            return torch.randn((b, s, h, d), generator=gen, device="cuda",
-                               dtype=dtype).transpose(1, 2)
-        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            return randn(gen, (b, s, h, d), dtype).transpose(1, 2)
+        return randn(gen, shape, dtype)
     return one(q_shape), one(kv_shape), one(kv_shape)
 
 
@@ -124,6 +166,10 @@ def phase_kernels() -> float:
          torch.bfloat16, True, False),
         ("ragged_sq_ne_sk", (1, 8, 200, 64), (1, 8, 328, 64), torch.float32,
          False, False),
+        ("roofline_int8", (1, 2, 256, 64), (1, 2, 256, 64), torch.int8,
+         False, False),
+        ("int8_causal", (2, 8, 384, 96), (2, 8, 384, 96), torch.int8,
+         True, False),
     ]
     prefill_err = None
     for name, qs, ks, dtype, causal, bshd in cases:
@@ -132,17 +178,151 @@ def phase_kernels() -> float:
                                   block_k=ks[2])
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, causal=causal)
-        atol, rtol = TOL[dtype]
         err = (got.float() - want.float()).abs()
-        ok = bool((err <= atol + rtol * want.float().abs()).all())
+        if dtype == torch.int8:
+            ok, extra = check_int8_attention(q, k, v, causal, got, want)
+        else:
+            atol, rtol = TOL[dtype]
+            ok = bool((err <= atol + rtol * want.float().abs()).all())
+            extra = dict(atol=atol, rtol=rtol)
         log("kernels", case=name, q=list(qs), kv=list(ks),
             dtype=str(dtype).split(".")[-1], causal=causal,
-            max_abs_err=float(err.max()), atol=atol, rtol=rtol, ok=ok)
-        check(ok and bool(torch.isfinite(got).all()),
+            max_abs_err=float(err.max()), mismatched=int((err > 0).sum()),
+            **extra, ok=ok)
+        check(ok and bool(torch.isfinite(got.float()).all()),
               f"flash_attention disagrees with its plain twin on {name}")
         if name == "prefill":
             prefill_err = float(err.max())
     return prefill_err
+
+
+def check_int8_attention(q, k, v, causal, got, want) -> tuple[bool, dict]:
+    """K5 on int8 against the twin, which truncates its f32 result toward
+    zero and saturates.  The kernel computes the same f32 values in another
+    order, so the two can truncate to neighbouring integers only where the
+    twin's f32 value lies within that difference of a nonzero integer.
+    Those outputs (within INT8_NEAR of one) are excused and must be within
+    1 and at most INT8_EXCUSED_SHARE of all; every other output must be
+    equal.  A kernel that rounds to nearest, or is off by one, fails.  The
+    window is held against the kernel's own f32 difference on these
+    values: the f32 instantiation on q, k, v widened to f32."""
+    f32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                   causal=causal)
+    f32_kernel = ops.flash_attention(q.float(), k.float(), v.float(),
+                                     causal=causal, block_q=q.shape[2],
+                                     block_k=k.shape[2])
+    f32_diff = float((f32_kernel - f32).abs().max())
+    near = f32.round()
+    excused = ((f32 - near).abs() <= INT8_NEAR) & (near != 0)
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    n_excused = int(excused.sum())
+    ok = (torch.equal(got[~excused], want[~excused])
+          and bool((diff[excused] <= 1).all())
+          and n_excused <= INT8_EXCUSED_SHARE * got.numel()
+          and f32_diff <= INT8_NEAR
+          and torch.equal(want, cast_like(f32, torch.int8)))
+    return ok, dict(excused=n_excused, excused_max=int(
+        INT8_EXCUSED_SHARE * got.numel()), near=INT8_NEAR,
+        kernel_f32_vs_twin_f32=f32_diff)
+
+
+def _close(got, want, atol, rtol) -> tuple[bool, float]:
+    err = (got.float() - want.float()).abs()
+    return (bool((err <= atol + rtol * want.float().abs()).all())
+            and bool(torch.isfinite(got.float()).all()), float(err.max()))
+
+
+def check_gemm(name, a, b, *, w, block_m, block_k) -> float:
+    """K3 (w >= 1) or K4 (w == 0) against its plain twin; int8 exactly."""
+    if w:
+        got = ops.matmul(a, b, working_set=w, block_m=block_m,
+                         block_k=block_k)
+        want = dg.matmul_grouped_plain(a, b, working_set=w, block_m=block_m,
+                                       block_k=block_k)
+    else:
+        got = ops.matmul_dispersed(a, b, block_m=block_m, block_k=block_k)
+        want = dg.matmul_dispersed_plain(a, b, block_m=block_m,
+                                         block_k=block_k)
+    torch.cuda.synchronize()
+    check(got.dtype == a.dtype and got.shape == want.shape,
+          f"{name}: {got.dtype} {tuple(got.shape)}")
+    if a.dtype == torch.int8:
+        ok, err = bool(torch.equal(got, want)), float(
+            (got.float() - want.float()).abs().max())
+        atol = rtol = 0.0
+    else:
+        atol, rtol = GEMM_TOL[a.dtype]
+        ok, err = _close(got, want, atol, rtol)
+    log("kernels", case=name, kernel="matmul_grouped" if w else
+        "matmul_dispersed", mkn=[a.shape[0], a.shape[1], b.shape[1]],
+        working_set=w, block_m=block_m, block_k=block_k,
+        dtype=str(a.dtype).split(".")[-1], max_abs_err=err, atol=atol,
+        rtol=rtol, ok=ok)
+    check(ok, f"{name} disagrees with its plain twin")
+    return err
+
+
+def phase_gemm_kernels() -> dict:
+    """K3 (W = 1, 2, 4) and K4 against their plain twins at the roofline's
+    shapes, the equal-footprint points and a ragged n; K3 bitwise equal
+    across W.  Returns each kernel's max |err|."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = {"matmul_grouped": 0.0, "matmul_dispersed": 0.0}
+    cases = [(m, 512, n, w, 64, 128) for (m, n) in ((256, 256), (512, 256))
+             for w in (0, 1, 2, 4)]
+    cases += [(512, 512, 256, w, bm, bk) for (w, bm, bk) in
+              ((4, 64, 128), (2, 128, 128), (1, 256, 64))]
+    cases += [(256, 512, 200, 2, 64, 128), (256, 512, 200, 0, 64, 128)]
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for m, k, n, w, bm, bk in cases:
+            a, b = randn(gen, (m, k), dtype), randn(gen, (k, n), dtype)
+            name = (f"gemm_{m}x{k}x{n}_" + (f"W{w}" if w else "dispersed")
+                    + f"_bm{bm}_bk{bk}")
+            err = check_gemm(name, a, b, w=w, block_m=bm, block_k=bk)
+            kernel = "matmul_grouped" if w else "matmul_dispersed"
+            errs[kernel] = max(errs[kernel], err)
+    a, b = randn(gen, (512, 512), torch.float32), randn(gen, (512, 256),
+                                                        torch.float32)
+    outs = [ops.matmul(a, b, working_set=w, block_m=64, block_k=128)
+            for w in (1, 2, 4)]
+    same = all(torch.equal(outs[0], o) for o in outs[1:])
+    log("kernels", case="grouped_bitwise_across_W", mkn=[512, 512, 256],
+        working_sets=[1, 2, 4], equal=same)
+    check(same, "matmul_grouped output depends on the working set")
+    # W * block_m = 192 rows is a legal tiling but no power of two: the
+    # kernel's entry point refuses it and the wrapper raises ValueError.
+    a = randn(gen, (384, 128), torch.float32)
+    try:
+        ops.matmul(a, b[:128], working_set=3, block_m=64, block_k=128)
+        refused = False
+    except ValueError as e:
+        refused = "power of two" in str(e)
+    log("kernels", case="grouped_cta_rows_192_refused", refused=refused)
+    check(refused, "matmul_grouped took a CTA of 192 rows")
+    return errs
+
+
+def phase_norm_kernels() -> float:
+    """K6 against its plain twin at the reference test's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for shape, dtype in (((2, 128, 512), torch.float32),
+                         ((2, 64, 1024), torch.bfloat16),
+                         ((3, 100), torch.float32)):
+        x = randn(gen, shape, dtype)
+        scale = 1.0 + 0.1 * randn(gen, (shape[-1],), torch.float32)
+        got = rn.rmsnorm(x, scale, block_rows=1)
+        torch.cuda.synchronize()
+        want = rn.rmsnorm_plain(x, scale)
+        atol, rtol = NORM_TOL[dtype]
+        ok, err = _close(got, want, atol, rtol)
+        ok = ok and got.dtype == dtype and got.shape == x.shape
+        log("kernels", case=f"rmsnorm_{'x'.join(map(str, shape))}",
+            dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
+            rtol=rtol, ok=ok)
+        check(ok, f"rmsnorm disagrees with its plain twin on {shape}")
+        worst = max(worst, err)
+    return worst
 
 
 # ----------------------------------------------------------------- prefill --
@@ -243,7 +423,116 @@ def phase_serve(model) -> None:
           f"statuses {[r.status for r in reqs]}")
 
 
+# ---------------------------------------------------------------- roofline --
+
+# The reference's measured grid (benchmarks/roofline.py): 2 GEMM cases x
+# W in {0, 1, 2, 4} x {f32, bf16, int8}, 1 attention case x 3
+# precisions, and 3 equal-footprint points for each GEMM case.
+REFERENCE_ROOFLINE_ROWS = 2 * 4 * 3 + 1 * 3 + 2 * 3
+COUNTED = {"flash_attention": fa.flash_attention_cuda,
+           "matmul_grouped": dg.matmul_grouped_cuda,
+           "matmul_dispersed": dg.matmul_dispersed_cuda,
+           "rmsnorm": rn.rmsnorm_cuda}
+
+
+def reset_launches() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def phase_roofline() -> dict:
+    """The port's measured roofline on the card, then vmem_dispersion's
+    spot check; returns the kernel launches of each path."""
+    reset_launches()
+    _, _, rows = roofline.run_measured(smoke=False, device="cuda")
+    launches = read_launches()
+    for r in rows:
+        print("[roofline] " + json.dumps(r), flush=True)
+    for study in roofline.json_extra()["equal_vmem"]:
+        log("roofline", equal_vmem=study["case"],
+            measured_winner=study["measured_winner"],
+            model_winner=study["model_winner"])
+    stats = roofline.perf_stats()
+    log("roofline", rows=len(rows), want_rows=REFERENCE_ROOFLINE_ROWS,
+        model_agree=sum(bool(r["model_agree"]) for r in rows),
+        launches=json.dumps(launches), perf_stats=json.dumps(stats))
+    check(len(rows) == REFERENCE_ROOFLINE_ROWS,
+          f"roofline gave {len(rows)} rows, the reference grid has "
+          f"{REFERENCE_ROOFLINE_ROWS}")
+    check(all(r["model_agree"] for r in rows),
+          "a roofline row's counted bytes disagree with the closed form")
+    for name in ("flash_attention", "matmul_grouped", "matmul_dispersed"):
+        check(launches[name] > 0, f"the roofline launched no {name}")
+        check(stats["kernel_launches"][name] == launches[name],
+              f"perf_stats disagrees on {name}")
+    check(not any(stats["plain_calls"].values()),
+          f"the roofline on the card ran plain twins: {stats}")
+
+    host_vs_device()
+
+    reset_launches()
+    vrows = vmem_dispersion.run("cuda")
+    vlaunches = read_launches()
+    spot = vrows[-1]
+    log("vmem_dispersion", rows=len(vrows), spot_check=spot["name"],
+        max_err=spot["max_err"], launches=json.dumps(vlaunches))
+    check(spot["max_err"] <= 1e-3 and vlaunches["matmul_grouped"] == 1,
+          f"vmem_dispersion spot check: {spot}, {vlaunches}")
+    return {"roofline": launches, "vmem_dispersion": vlaunches}
+
+
+def host_vs_device(calls: int = 20) -> None:
+    """Where a roofline point's time goes, at the 512x512x256 f32 points
+    W=0 (K4, 4 launches a call) and W=4 (K3): us per call timed by CUDA
+    events around one call from an idle stream (host work inside the
+    window), around ``calls`` back-to-back calls (the roofline's
+    timing: the device's time unless the host is slower), and the host's
+    own time to issue one call (perf_counter over ``calls`` calls with no
+    synchronisation)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a = randn(gen, (512, 512), torch.float32)
+    b = randn(gen, (512, 256), torch.float32)
+    kw = dict(block_m=roofline.BLOCK_M, block_k=roofline.BLOCK_K)
+    for w, fn in ((0, lambda: ops.matmul_dispersed(a, b, **kw)),
+                  (4, lambda: ops.matmul(a, b, working_set=4, **kw))):
+        fn()
+        torch.cuda.synchronize()
+        one = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            one.append(start.elapsed_time(end) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_us = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+        log("roofline", host_vs_device="gemm_512x512x256_f32", working_set=w,
+            one_call_us=sorted(one)[2],
+            back_to_back_us=cuda_ms(fn, warmup=1, iters=calls) * 1e3,
+            host_issue_us=host_us)
+
+
 # ------------------------------------------------------------------ timing --
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """The larger of bytes over the HBM rate and flops over the dtype's
+    peak, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
 
 def phase_timing() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -254,13 +543,97 @@ def phase_timing() -> dict:
                                                         causal=True))
     lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True))
-    bound_ms, bound_by = attention_bound_ms(q, k, v, causal=True)
+    bms, bound_by = attention_bound_ms(q, k, v, causal=True)
     log("timing", kernel="flash_attention", shape=list(shape),
         dtype="bfloat16", causal=True, ms=ms, plain_ms=plain_ms,
-        sdpa_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-        share_of_bound=bound_ms / ms)
+        sdpa_ms=lib_ms, bound_ms=bms, bound_by=bound_by,
+        share_of_bound=bms / ms)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bms, bound_by=bound_by)
+
+
+def phase_gemm_timing() -> dict:
+    """K3 (W = 1, 4) and K4 at granite-8b's MLP GEMM in bf16: each held
+    against the plain twin (K3 bitwise equal across W), then timed beside
+    the bound, the plain twin and torch.matmul."""
+    m, k, n = GEMM_M, GEMM_K, GEMM_N
+    kw = dict(block_m=GEMM_BLOCK_M, block_k=GEMM_BLOCK_K)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    a = randn(gen, (m, k), torch.bfloat16)
+    b = randn(gen, (k, n), torch.bfloat16)
+    want = dg.matmul_grouped_plain(a, b, working_set=1, **kw)
+    got1 = ops.matmul(a, b, working_set=1, **kw)
+    got4 = ops.matmul(a, b, working_set=4, **kw)
+    check(torch.equal(got1, got4),
+          "matmul_grouped W=1 and W=4 differ at the GEMM shape")
+    atol, rtol = GEMM_TOL[torch.bfloat16]
+    ok1, err1 = _close(got1, want, atol, rtol)
+    del got1, got4
+    gotd = ops.matmul_dispersed(a, b, **kw)
+    okd, errd = _close(gotd, want, atol, rtol)
+    del gotd, want
+    log("timing", check="gemm_vs_plain", mkn=[m, k, n], grouped_err=err1,
+        dispersed_err=errd, atol=atol, rtol=rtol, grouped_bitwise_w1_w4=True)
+    check(ok1 and okd, f"GEMM vs plain twin at {m}x{k}x{n}: {err1}, {errd}")
+
+    plain_ms = cuda_ms(lambda: dg.matmul_grouped_plain(
+        a, b, working_set=1, **kw), warmup=1, iters=3)
+    lib_ms = cuda_ms(lambda: torch.matmul(a, b))
+    flops = 2.0 * m * n * k
+    bms, bound_by = bound_ms((m * k + k * n + m * n) * 2, flops,
+                             torch.bfloat16)
+    out = {}
+    for name, w in (("matmul_grouped_W1", 1), ("matmul_grouped", 4),
+                    ("matmul_dispersed", 0)):
+        model = dg.hbm_traffic_model(m, n, k, working_set=max(w, 1),
+                                     bytes_per_el=2, **kw)
+        sched = model["grouped"] if w else model["dispersed"]
+        sched_ms, _ = bound_ms(sched, flops, torch.bfloat16)
+        fn = ((lambda w=w: ops.matmul(a, b, working_set=w, **kw)) if w
+              else (lambda: ops.matmul_dispersed(a, b, **kw)))
+        counter = dg.matmul_grouped_cuda if w else dg.matmul_dispersed_cuda
+        before = counter.launches
+        ms = cuda_ms(fn, warmup=1, iters=3)
+        per_call = (counter.launches - before) / 4
+        log("timing", kernel=name, mkn=[m, k, n], dtype="bfloat16",
+            working_set=w, ms=ms, launches_per_call=per_call,
+            plain_ms=plain_ms, matmul_ms=lib_ms, bound_ms=bms,
+            bound_by=bound_by, schedule_bytes=sched,
+            schedule_bound_ms=sched_ms, share_of_bound=bms / ms)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=bound_by,
+                         schedule_bound_ms=sched_ms,
+                         launches_per_call=per_call,
+                         max_abs_err=errd if w == 0 else err1)
+    return out
+
+
+def phase_norm_timing() -> dict:
+    """K6 on (NORM_ROWS, NORM_D) bf16 beside its bound, plain twin and
+    F.rms_norm (given the same scale, exactly representable in bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = randn(gen, (NORM_ROWS, NORM_D), torch.bfloat16)
+    scale = (1.0 + 0.1 * randn(gen, (NORM_D,), torch.float32)).to(
+        torch.bfloat16)
+    scale32 = scale.float()
+    atol, rtol = NORM_TOL[torch.bfloat16]
+    ok, err = _close(rn.rmsnorm(x, scale32), rn.rmsnorm_plain(x, scale32),
+                     atol, rtol)
+    check(ok, f"rmsnorm vs plain twin at ({NORM_ROWS}, {NORM_D}): {err}")
+    before = rn.rmsnorm_cuda.launches
+    ms = cuda_ms(lambda: rn.rmsnorm(x, scale32))
+    per_call = (rn.rmsnorm_cuda.launches - before) / 23
+    plain_ms = cuda_ms(lambda: rn.rmsnorm_plain(x, scale32))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.rms_norm(
+        x, (NORM_D,), weight=scale, eps=1e-6))
+    bms, bound_by = bound_ms(2 * x.numel() * 2 + NORM_D * 4,
+                             4.0 * x.numel(), torch.float32)
+    log("timing", kernel="rmsnorm", shape=[NORM_ROWS, NORM_D],
+        dtype="bfloat16", ms=ms, launches_per_call=per_call,
+        plain_ms=plain_ms, rms_norm_ms=lib_ms, bound_ms=bms,
+        bound_by=bound_by, max_abs_err=err, share_of_bound=bms / ms)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=bound_by, max_abs_err=err)
 
 
 def main() -> int:
@@ -288,6 +661,8 @@ def main() -> int:
         time.perf_counter() - t0, 2))
 
     prefill_err = phase_kernels()
+    gemm_errs = phase_gemm_kernels()
+    norm_err = phase_norm_kernels()
 
     cfg = get(ARCH)
     model = Model(cfg, device="cuda")
@@ -296,16 +671,53 @@ def main() -> int:
                                            for p in model.parameters()),
         weight_gb=round(sum(p.numel() * p.element_size()
                             for p in model.parameters()) / 1e9, 3))
-    launches = phase_prefill(model)
+    prefill_launches = phase_prefill(model)
     model.cfg = cfg
     phase_serve(model)
-    timing = phase_timing()
+    del model
+    torch.cuda.empty_cache()
+    paths = phase_roofline()
+    flash_timing = phase_timing()
+    gemm = phase_gemm_timing()
+    norm = phase_norm_timing()
 
-    kernels = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:118",
-        launches=launches, max_abs_err=prefill_err, **timing)]
+    def launches(name, extra=None):
+        by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        by_path.update(extra or {})
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+
+    def gemm_entry(name, replaces):
+        g = dict(gemm[name])
+        err = max(g.pop("max_abs_err"), gemm_errs[name])
+        return dict(name=name, route="cuda",
+                    source="src/repro_torch/kernels/csrc/dispersed_gemm.cu",
+                    replaces=replaces, **launches(name), max_abs_err=err,
+                    shape=[GEMM_M, GEMM_K, GEMM_N], dtype="bfloat16", **g)
+
+    k3 = gemm_entry("matmul_grouped",
+                    "src/repro/kernels/dispersed_gemm.py:117")
+    k3["working_set"] = 4
+    k3["W1"] = {key: gemm["matmul_grouped_W1"][key] for key in
+                ("ms", "bound_ms", "schedule_bound_ms", "launches_per_call")}
+    norm_entry = dict(norm)
+    norm_entry["max_abs_err"] = max(norm_entry["max_abs_err"], norm_err)
+    kernels = [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:118",
+             **launches("flash_attention", {"prefill": prefill_launches}),
+             max_abs_err=prefill_err, **flash_timing),
+        k3,
+        gemm_entry("matmul_dispersed",
+                   "src/repro/kernels/dispersed_gemm.py:164"),
+        # K6 is on no path of the reference (only its test calls it), so
+        # no path launches it; it is held and timed above.
+        dict(name="rmsnorm", route="cuda",
+             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm.py:27",
+             **launches("rmsnorm"), shape=[NORM_ROWS, NORM_D],
+             dtype="bfloat16", **norm_entry),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

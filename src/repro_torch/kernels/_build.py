@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``kernels/build/``
 (listed in ``.gitignore``) at first use, and loaded with ``ctypes``.  The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing here runs
-at import time: the CPU tests import every module on machines without
-``nvcc``.
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a
+stale library is never loaded.  Nothing here runs at import time: the
+CPU tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

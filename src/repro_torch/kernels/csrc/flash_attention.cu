@@ -11,7 +11,9 @@
 // top-left (row i sees columns j <= i) with whole KV tiles above the
 // diagonal skipped; a normaliser of 0 replaced by 1; f32 inputs multiplied
 // in full f32 (no TF32), bf16 inputs accumulated in f32 and the output
-// rounded to nearest even.
+// rounded to nearest even, int8 inputs read as f32 and the output
+// truncated toward zero and saturated to [-128, 127] (JAX's f32 -> int8,
+// which the reference applies when it casts back to the input type).
 //
 // Layout: q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), o like q, each with its
 // own batch/head/sequence strides in elements and a unit stride along D, so
@@ -40,6 +42,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "convert.cuh"
+
 namespace {
 
 constexpr int BQ = 64;          // query rows per CTA
@@ -62,15 +66,6 @@ struct Params {
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -232,9 +227,9 @@ cudaError_t launch_d(const Params& p, int bh, int d, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns the
-// launch's cudaError_t (0 on success); the kernel runs on `stream` and the
-// call does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16, 2 = int8.  Strides are in elements.
+// Returns the launch's cudaError_t (0 on success); the kernel runs on
+// `stream` and the call does not synchronise.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     int b, int hq, int hkv, int sq, int sk, int d,
@@ -251,6 +246,7 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? launch_d<float>(p, b * hq, d, s)
                   : dtype == 1 ? launch_d<__nv_bfloat16>(p, b * hq, d, s)
+                  : dtype == 2 ? launch_d<int8_t>(p, b * hq, d, s)
                                : cudaErrorInvalidValue;
   return (int)err;
 }

@@ -12,6 +12,10 @@ Dispatch is by the device of the tensors: a CPU tensor goes to
 or raises.  ``block_q``/``block_k`` are validated as the reference does
 (same ``ValueError``s) and otherwise unused: the CUDA tile is the kernel's
 own choice.
+
+``flash_schedule`` and ``hbm_traffic_model`` give the reference's grid,
+index maps and closed-form bytes for the roofline: the schedule's count,
+not bytes measured on the card.
 """
 
 from __future__ import annotations
@@ -20,9 +24,14 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import traffic
+from repro_torch.kernels.ref import cast_like
+
 NEG_INF = -1e30
+LANES = 128
+ACC_BYTES = 4      # m/l/acc scratch is f32
 HEAD_DIMS = (32, 64, 96, 128)       # instantiated in the CUDA source
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _check_blocks(sq: int, sk: int, *, block_q: int, block_k: int):
@@ -44,11 +53,21 @@ def _check_blocks(sq: int, sk: int, *, block_q: int, block_k: int):
     return block_q, block_k, sq // block_q, sk // block_k
 
 
+def _flash_maps():
+    """The reference's index maps over the grid (b*h, q blocks, kv
+    blocks), shared with :func:`flash_schedule`."""
+    q = lambda bh_, iq, ik: (bh_, iq, 0)
+    kv = lambda bh_, iq, ik: (bh_, ik, 0)
+    o = lambda bh_, iq, ik: (bh_, iq, 0)
+    return q, kv, o
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = False,
                           scale: float | None = None):
     """Plain-torch attention with the kernel's semantics: f32 scores, the
     top-left causal rule (row i sees columns j <= i) with the finite
-    NEG_INF, output cast to q's dtype.  k/v may have fewer heads than q
+    NEG_INF, output cast to q's dtype (int8 truncated and saturated, as
+    JAX casts).  k/v may have fewer heads than q
     (GQA, q heads a multiple).  The CPU path and the kernel's oracle."""
     sq, d = q.shape[-2], q.shape[-1]
     sk = k.shape[-2]
@@ -65,7 +84,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
         logits = logits.masked_fill(rows < cols, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
-    return out.to(q.dtype)
+    return cast_like(out, q.dtype)
+
+
+flash_attention_plain.calls = 0
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
@@ -79,8 +101,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_attention_cuda takes float32 or bfloat16, "
-                         f"all alike; got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError("flash_attention_cuda takes float32, bfloat16 or "
+                         f"int8, all alike; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if k.shape != (b, hkv, sk, d) or v.shape != k.shape:
@@ -123,6 +146,7 @@ def _attend(q, k, v, *, causal: bool, scale: float | None):
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if q.device.type == "cpu":
+        flash_attention_plain.calls += 1
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
@@ -141,3 +165,52 @@ def flash_attention(q, k, v, *, causal: bool = False,
             f"k/v heads={k.shape[1]} (use ops.flash_attention for GQA)")
     _check_blocks(q.shape[2], k.shape[2], block_q=block_q, block_k=block_k)
     return _attend(q, k, v, causal=causal, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Traffic geometry: the measured side of the roofline's model check.
+# ---------------------------------------------------------------------------
+
+
+def flash_schedule(b: int, h: int, sq: int, sk: int, d: int, *,
+                   block_q: int, block_k: int,
+                   bytes_per_el: int = 2) -> traffic.Schedule:
+    """The reference schedule's grid + operand parts.  Q and O move once;
+    K/V are re-streamed once per q block (the price of the O(1) working
+    set)."""
+    block_q, block_k, nq, nk = _check_blocks(
+        sq, sk, block_q=block_q, block_k=block_k)
+    q_map, kv_map, o_map = _flash_maps()
+    return traffic.Schedule(
+        grid=(b * h, nq, nk),
+        parts=(
+            traffic.Part("q", block_q * d * bytes_per_el, q_map, "in"),
+            traffic.Part("k", block_k * d * bytes_per_el, kv_map, "in"),
+            traffic.Part("v", block_k * d * bytes_per_el, kv_map, "in"),
+            traffic.Part("o", block_q * d * bytes_per_el, o_map, "out"),
+        ))
+
+
+def hbm_traffic_model(b: int, h: int, sq: int, sk: int, d: int, *,
+                      block_q: int, block_k: int,
+                      bytes_per_el: int = 2) -> dict:
+    """Closed-form device-memory bytes for attention schedules.
+
+    flash: Q and O once; the K/V panels re-streamed once per q block.
+    materialized: the dispersed extreme — the (sq, sk) score matrix is
+    spilled and refilled at f32 width, as a non-fused attention would.
+    ideal: every operand exactly once.
+    """
+    block_q, block_k, nq, nk = _check_blocks(
+        sq, sk, block_q=block_q, block_k=block_k)
+    bh = b * h
+    q_bytes = bh * sq * d * bytes_per_el
+    kv_bytes = bh * sk * d * bytes_per_el           # one of K or V
+    o_bytes = q_bytes
+    flash = q_bytes + o_bytes + 2 * nq * kv_bytes
+    scores = bh * sq * sk * ACC_BYTES
+    materialized = q_bytes + o_bytes + 2 * kv_bytes + 2 * scores
+    ideal = q_bytes + o_bytes + 2 * kv_bytes
+    return dict(flash=flash, materialized=materialized, ideal=ideal,
+                vmem_acc_bytes=(block_q * d + 2 * block_q * LANES)
+                * ACC_BYTES)

@@ -6,6 +6,7 @@ CUDA kernel for CUDA tensors; there is no fallback between the two.
 
 from __future__ import annotations
 
+from repro_torch.kernels import dispersed_gemm as _dg
 from repro_torch.kernels import flash_attention as _fa
 
 
@@ -23,3 +24,25 @@ def flash_attention(q, k, v, *, causal: bool = False,
     _fa._check_blocks(q.shape[2], k.shape[2], block_q=block_q,
                       block_k=block_k)
     return _fa._attend(q, k, v, causal=causal, scale=scale)
+
+
+def matmul(a, b, *, working_set: int = 4, block_m: int = 128,
+           block_k: int = 512):
+    """Grouped (compact-working-set) GEMM — the recommended schedule."""
+    return _dg.matmul_grouped(a, b, block_m=block_m, block_k=block_k,
+                              working_set=working_set)
+
+
+def matmul_dispersed(a, b, *, block_m: int = 128, block_k: int = 512):
+    """Fully-dispersed (round-trip accumulators) GEMM — the W=0 extreme."""
+    return _dg.matmul_dispersed(a, b, block_m=block_m, block_k=block_k)
+
+
+hbm_traffic_model = _dg.hbm_traffic_model
+flash_traffic_model = _fa.hbm_traffic_model
+
+# Schedule geometries (grid + index maps) for the instrumented traffic
+# count — see repro_torch.kernels.traffic.
+grouped_schedule = _dg.grouped_schedule
+dispersed_schedule = _dg.dispersed_schedule
+flash_schedule = _fa.flash_schedule

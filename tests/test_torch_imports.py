@@ -25,7 +25,12 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_without_jax():
     mods = list(_port_modules())
-    assert "repro_torch.serve.engine" in mods
+    for m in ("repro_torch.serve.engine", "repro_torch.api",
+              "repro_torch.metrics", "repro_torch.kernels.dispersed_gemm",
+              "repro_torch.kernels.rmsnorm", "repro_torch.kernels.traffic",
+              "repro_torch.kernels.ref", "repro_torch.benchmarks.roofline",
+              "repro_torch.benchmarks.vmem_dispersion"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -71,3 +76,27 @@ def test_kernel_build_needs_nvcc_and_names_libraries_by_source():
         pytest.skip("nvcc present: the build would run")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all(["flash_attention"])
+
+
+def test_every_kernel_source_gets_its_own_library():
+    from repro_torch.kernels import _build
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert names == ["dispersed_gemm", "flash_attention", "rmsnorm"]
+    paths = {_build.library_path(n) for n in names}
+    assert len(paths) == len(names)
+    for name in names:
+        assert _build.library_path(name).name.startswith(f"lib{name}-")
+
+
+def test_shared_header_edit_renames_every_library(tmp_path, monkeypatch):
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    before = {n: _build.library_path(n) for n in names}
+    header = csrc / "convert.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for n in names:
+        assert _build.library_path(n) != before[n]
