@@ -9,8 +9,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. kernels   hold each kernel against its plain-torch twin on the card at
                the main paths' shapes and a few edge shapes: K5 flash
                attention (f32, bf16, int8), K3 grouped and K4 dispersed
-               GEMM (f32, bf16, int8 exactly; K3 bitwise equal across W),
-               K6 RMSNorm;
+               GEMM (f32 on the CUDA-core route; bf16 and int8 on the
+               tensor-core route, int8 exactly; K3 bitwise equal across
+               W, K4 bitwise equal to K3 on the tensor cores, bf16 W = 3
+               in a cluster of 3), K6 RMSNorm;
   3. prefill   full-width phi3-mini-3.8b (random weights from a seeded
                generator): Model.prefill on 4 x 512 tokens with the flash
                kernel vs the plain sdpa path, counting kernel launches, and
@@ -19,14 +21,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
                steady-traffic scenario at full width;
   5. roofline  the measured roofline (repro_torch.benchmarks.roofline) on
                the card: every row's schedule bytes agree with the closed
-               form, the row count is the reference grid's, and K3, K4 and
-               K5 were launched; one call's time from idle vs back to back
-               vs the host's issue time at two points; then
-               vmem_dispersion's spot check;
+               form, the row count is the reference grid's, K3, K4 and
+               K5 were launched, the bf16/int8 GEMM rows on the tensor-core
+               route and the f32 rows on the FMA route; one call's time
+               from idle vs back to back vs the host's issue time at two
+               points; then vmem_dispersion's spot check;
   6. timing    each kernel at its main shape (K5 at the prefill shape, K3
-               W=1/W=4 and K4 at granite-8b's MLP GEMM, K6 on its rows)
-               beside its bound, its plain twin and the library call
-               computing the same function.
+               W=1/W=4 and K4 at granite-8b's MLP GEMM, where K3 is
+               bitwise equal across W and K4 to K3 in bf16 and int8; K6 on
+               its rows) beside its bound, its plain twin and the library
+               call computing the same function.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line {"ok": true, "device": {...}}.  Without a CUDA
@@ -232,8 +236,9 @@ def _close(got, want, atol, rtol) -> tuple[bool, float]:
             and bool(torch.isfinite(got.float()).all()), float(err.max()))
 
 
-def check_gemm(name, a, b, *, w, block_m, block_k) -> float:
-    """K3 (w >= 1) or K4 (w == 0) against its plain twin; int8 exactly."""
+def check_gemm(name, a, b, *, w, block_m, block_k):
+    """K3 (w >= 1) or K4 (w == 0) against its plain twin; int8 exactly.
+    Returns the kernel's output and its max |err|."""
     if w:
         got = ops.matmul(a, b, working_set=w, block_m=block_m,
                          block_k=block_k)
@@ -253,19 +258,30 @@ def check_gemm(name, a, b, *, w, block_m, block_k) -> float:
     else:
         atol, rtol = GEMM_TOL[a.dtype]
         ok, err = _close(got, want, atol, rtol)
+    plan = dg.tc_plan(a.shape[0], b.shape[1], a.shape[1], block_m=block_m,
+                      block_k=block_k, working_set=w, dtype=a.dtype)
     log("kernels", case=name, kernel="matmul_grouped" if w else
         "matmul_dispersed", mkn=[a.shape[0], a.shape[1], b.shape[1]],
         working_set=w, block_m=block_m, block_k=block_k,
-        dtype=str(a.dtype).split(".")[-1], max_abs_err=err, atol=atol,
-        rtol=rtol, ok=ok)
+        dtype=str(a.dtype).split(".")[-1], route=plan["route"],
+        cluster=plan["cluster"], n_tile=plan["n_tile"], max_abs_err=err,
+        atol=atol, rtol=rtol, ok=ok)
     check(ok, f"{name} disagrees with its plain twin")
-    return err
+    return got, err
+
+
+def route_launches() -> dict:
+    return {name: dict(tc=fn.launches_tc, fma=fn.launches_fma)
+            for name, fn in (("matmul_grouped", dg.matmul_grouped_cuda),
+                             ("matmul_dispersed", dg.matmul_dispersed_cuda))}
 
 
 def phase_gemm_kernels() -> dict:
     """K3 (W = 1, 2, 4) and K4 against their plain twins at the roofline's
-    shapes, the equal-footprint points and a ragged n; K3 bitwise equal
-    across W.  Returns each kernel's max |err|."""
+    shapes, the equal-footprint points and a ragged n, in f32 (FMA route),
+    bf16 and int8 (tensor-core route); K3 bitwise equal across W and K4
+    bitwise equal to K3 on the tensor cores; W = 3 on the tensor cores
+    and its refusal on the FMA route.  Returns each kernel's max |err|."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs = {"matmul_grouped": 0.0, "matmul_dispersed": 0.0}
     cases = [(m, 512, n, w, 64, 128) for (m, n) in ((256, 256), (512, 256))
@@ -274,31 +290,60 @@ def phase_gemm_kernels() -> dict:
               ((4, 64, 128), (2, 128, 128), (1, 256, 64))]
     cases += [(256, 512, 200, 2, 64, 128), (256, 512, 200, 0, 64, 128)]
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        k3_out = {}        # (m, k, n, block_m) -> K3's output at W
+        k4_vs_k3 = []
         for m, k, n, w, bm, bk in cases:
+            gen.manual_seed(m * k + n)    # same a, b for every W of a shape
             a, b = randn(gen, (m, k), dtype), randn(gen, (k, n), dtype)
             name = (f"gemm_{m}x{k}x{n}_" + (f"W{w}" if w else "dispersed")
-                    + f"_bm{bm}_bk{bk}")
-            err = check_gemm(name, a, b, w=w, block_m=bm, block_k=bk)
+                    + f"_bm{bm}_bk{bk}_{str(dtype).split('.')[-1]}")
+            got, err = check_gemm(name, a, b, w=w, block_m=bm, block_k=bk)
             kernel = "matmul_grouped" if w else "matmul_dispersed"
             errs[kernel] = max(errs[kernel], err)
-    a, b = randn(gen, (512, 512), torch.float32), randn(gen, (512, 256),
-                                                        torch.float32)
-    outs = [ops.matmul(a, b, working_set=w, block_m=64, block_k=128)
-            for w in (1, 2, 4)]
-    same = all(torch.equal(outs[0], o) for o in outs[1:])
-    log("kernels", case="grouped_bitwise_across_W", mkn=[512, 512, 256],
-        working_sets=[1, 2, 4], equal=same)
-    check(same, "matmul_grouped output depends on the working set")
-    # W * block_m = 192 rows is a legal tiling but no power of two: the
-    # kernel's entry point refuses it and the wrapper raises ValueError.
+            if w:
+                k3_out.setdefault((m, k, n, bm), {})[w] = got
+            elif dtype != torch.float32:
+                k4_vs_k3.append((m, k, n, bm, got))
+        for key, outs in k3_out.items():
+            ws = sorted(outs)
+            same = all(torch.equal(outs[ws[0]], outs[x]) for x in ws[1:])
+            if len(ws) > 1:
+                log("kernels", case="grouped_bitwise_across_W", mkn=list(
+                    key[:3]), block_m=key[3], working_sets=ws,
+                    dtype=str(dtype).split(".")[-1], equal=same)
+            check(same, f"matmul_grouped output depends on W at {key}")
+        # K4 on the tensor cores runs K3's sequence of wgmmas, with exact
+        # f32 fills between its launches: bitwise equal.
+        for m, k, n, bm, got in k4_vs_k3:
+            k3 = k3_out[(m, k, n, bm)]
+            same = all(torch.equal(got, o) for o in k3.values())
+            log("kernels", case="dispersed_equals_grouped", mkn=[m, k, n],
+                block_m=bm, dtype=str(dtype).split(".")[-1],
+                working_sets=sorted(k3), equal=same)
+            check(same, f"matmul_dispersed != matmul_grouped at "
+                        f"{(m, k, n, bm)} in {dtype}")
+    # W = 3: a cluster of 3 CTAs on the tensor cores; on the FMA route
+    # W * block_m = 192 rows is no power of two, refused with ValueError.
+    for dtype in (torch.bfloat16, torch.int8):
+        a = randn(gen, (384, 128), dtype)
+        b = randn(gen, (128, 256), dtype)
+        got, err = check_gemm(f"gemm_384x128x256_W3_bm64_"
+                              f"{str(dtype).split('.')[-1]}", a, b, w=3,
+                              block_m=64, block_k=128)
+        w1 = ops.matmul(a, b, working_set=1, block_m=64, block_k=128)
+        check(torch.equal(got, w1), f"W=3 and W=1 differ in {dtype}")
+        errs["matmul_grouped"] = max(errs["matmul_grouped"], err)
     a = randn(gen, (384, 128), torch.float32)
+    b = randn(gen, (128, 256), torch.float32)
     try:
-        ops.matmul(a, b[:128], working_set=3, block_m=64, block_k=128)
+        ops.matmul(a, b, working_set=3, block_m=64, block_k=128)
         refused = False
     except ValueError as e:
         refused = "power of two" in str(e)
-    log("kernels", case="grouped_cta_rows_192_refused", refused=refused)
-    check(refused, "matmul_grouped took a CTA of 192 rows")
+    log("kernels", case="grouped_f32_cta_rows_192_refused", refused=refused)
+    check(refused, "matmul_grouped took a CTA of 192 rows on the FMA route")
+    log("kernels", case="route_launches", launches=json.dumps(
+        route_launches()))
     return errs
 
 
@@ -472,6 +517,11 @@ def phase_roofline() -> dict:
               f"perf_stats disagrees on {name}")
     check(not any(stats["plain_calls"].values()),
           f"the roofline on the card ran plain twins: {stats}")
+    # bf16 and int8 GEMM rows on the tensor cores, f32 rows on the FMAs
+    for prec, r in stats["route_launches"].items():
+        want, other = ("fma", "tc") if prec == "f32" else ("tc", "fma")
+        check(r[want] > 0 and r[other] == 0,
+              f"roofline {prec} GEMM rows by route: {r}")
 
     host_vs_device()
 
@@ -553,58 +603,86 @@ def phase_timing() -> dict:
 
 
 def phase_gemm_timing() -> dict:
-    """K3 (W = 1, 4) and K4 at granite-8b's MLP GEMM in bf16: each held
-    against the plain twin (K3 bitwise equal across W), then timed beside
-    the bound, the plain twin and torch.matmul."""
+    """K3 (W = 1, 4) and K4 at granite-8b's MLP GEMM: held against the
+    plain twin in bf16; K3 bitwise equal across W and K4 bitwise equal to
+    K3 in bf16 and int8; then, in bf16, each timed beside the bound, its
+    schedule's bound, the plain twin and torch.matmul, with its launches
+    per call by route."""
     m, k, n = GEMM_M, GEMM_K, GEMM_N
     kw = dict(block_m=GEMM_BLOCK_M, block_k=GEMM_BLOCK_K)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    a = randn(gen, (m, k), torch.bfloat16)
-    b = randn(gen, (k, n), torch.bfloat16)
+    for dtype in (torch.int8, torch.bfloat16):
+        a = randn(gen, (m, k), dtype)
+        b = randn(gen, (k, n), dtype)
+        got1 = ops.matmul(a, b, working_set=1, **kw)
+        got4 = ops.matmul(a, b, working_set=4, **kw)
+        gotd = ops.matmul_dispersed(a, b, **kw)
+        torch.cuda.synchronize()
+        same_w, same_d = torch.equal(got1, got4), torch.equal(got1, gotd)
+        log("timing", check="gemm_bitwise", mkn=[m, k, n],
+            dtype=str(dtype).split(".")[-1], grouped_w1_equals_w4=same_w,
+            dispersed_equals_grouped=same_d)
+        check(same_w, f"matmul_grouped W=1 and W=4 differ in {dtype}")
+        check(same_d, f"matmul_dispersed != matmul_grouped in {dtype}")
+        del got4, gotd
     want = dg.matmul_grouped_plain(a, b, working_set=1, **kw)
-    got1 = ops.matmul(a, b, working_set=1, **kw)
-    got4 = ops.matmul(a, b, working_set=4, **kw)
-    check(torch.equal(got1, got4),
-          "matmul_grouped W=1 and W=4 differ at the GEMM shape")
     atol, rtol = GEMM_TOL[torch.bfloat16]
     ok1, err1 = _close(got1, want, atol, rtol)
-    del got1, got4
-    gotd = ops.matmul_dispersed(a, b, **kw)
-    okd, errd = _close(gotd, want, atol, rtol)
-    del gotd, want
-    log("timing", check="gemm_vs_plain", mkn=[m, k, n], grouped_err=err1,
-        dispersed_err=errd, atol=atol, rtol=rtol, grouped_bitwise_w1_w4=True)
-    check(ok1 and okd, f"GEMM vs plain twin at {m}x{k}x{n}: {err1}, {errd}")
+    del got1, want
+    log("timing", check="gemm_vs_plain", mkn=[m, k, n], dtype="bfloat16",
+        grouped_err=err1, atol=atol, rtol=rtol)
+    check(ok1, f"GEMM vs plain twin at {m}x{k}x{n}: {err1}")
 
+    iters = 10
     plain_ms = cuda_ms(lambda: dg.matmul_grouped_plain(
-        a, b, working_set=1, **kw), warmup=1, iters=3)
-    lib_ms = cuda_ms(lambda: torch.matmul(a, b))
+        a, b, working_set=1, **kw), warmup=1, iters=iters)
+    lib_ms = cuda_ms(lambda: torch.matmul(a, b), iters=iters)
     flops = 2.0 * m * n * k
     bms, bound_by = bound_ms((m * k + k * n + m * n) * 2, flops,
                              torch.bfloat16)
+    kernels = (("matmul_grouped_W1", 1), ("matmul_grouped", 4),
+               ("matmul_dispersed", 0))
+    fns = {name: (lambda w=w: ops.matmul(a, b, working_set=w, **kw)) if w
+           else (lambda: ops.matmul_dispersed(a, b, **kw))
+           for name, w in kernels}
+    # The card slows as it heats under back-to-back GEMMs, so the three are
+    # timed in turns, forward then backward, and each time is the mean of
+    # its two samples.
+    counts = {name: dg.matmul_grouped_cuda if w else
+              dg.matmul_dispersed_cuda for name, w in kernels}
+    before = {name: (c.launches, c.launches_tc, c.launches_fma)
+              for name, c in counts.items()}
+    samples = {name: [] for name in fns}
+    for name, _ in kernels + kernels[::-1]:
+        samples[name].append(cuda_ms(fns[name], warmup=1, iters=iters))
     out = {}
-    for name, w in (("matmul_grouped_W1", 1), ("matmul_grouped", 4),
-                    ("matmul_dispersed", 0)):
+    for name, w in kernels:
         model = dg.hbm_traffic_model(m, n, k, working_set=max(w, 1),
                                      bytes_per_el=2, **kw)
         sched = model["grouped"] if w else model["dispersed"]
-        sched_ms, _ = bound_ms(sched, flops, torch.bfloat16)
-        fn = ((lambda w=w: ops.matmul(a, b, working_set=w, **kw)) if w
-              else (lambda: ops.matmul_dispersed(a, b, **kw)))
-        counter = dg.matmul_grouped_cuda if w else dg.matmul_dispersed_cuda
-        before = counter.launches
-        ms = cuda_ms(fn, warmup=1, iters=3)
-        per_call = (counter.launches - before) / 4
+        sched_ms, sched_by = bound_ms(sched, flops, torch.bfloat16)
+        counter = counts[name]
+        ms = sum(samples[name]) / 2
+        calls = 2 * (1 + iters) * (2 if counter is dg.matmul_grouped_cuda
+                                   else 1)
+        per_call, tc, fma = ((after - b0) / calls for after, b0 in zip(
+            (counter.launches, counter.launches_tc, counter.launches_fma),
+            before[name]))
+        check(tc == per_call and fma == 0,
+              f"{name} in bf16 left the tensor-core route: {tc}, {fma}")
         log("timing", kernel=name, mkn=[m, k, n], dtype="bfloat16",
-            working_set=w, ms=ms, launches_per_call=per_call,
+            working_set=w, ms=ms, samples_ms=samples[name], iters=iters,
+            launches_per_call=per_call,
+            launches_tc_per_call=tc, launches_fma_per_call=fma,
             plain_ms=plain_ms, matmul_ms=lib_ms, bound_ms=bms,
-            bound_by=bound_by, schedule_bytes=sched,
-            schedule_bound_ms=sched_ms, share_of_bound=bms / ms)
+            bound_by=bound_by, share_of_bound=bms / ms,
+            schedule_bytes=sched, schedule_bound_ms=sched_ms,
+            schedule_bound_by=sched_by, share_of_schedule_bound=sched_ms / ms,
+            vs_matmul=ms / lib_ms)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bms, bound_by=bound_by,
                          schedule_bound_ms=sched_ms,
-                         launches_per_call=per_call,
-                         max_abs_err=errd if w == 0 else err1)
+                         launches_per_call=per_call, max_abs_err=err1)
     return out
 
 
@@ -655,10 +733,16 @@ def main() -> int:
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
-                                       "spill")):
+                                       "spill", "warning")):
                 print(f"[build] {name}: {line.strip()}")
     log("build", kernels=sorted(logs), seconds=round(
         time.perf_counter() - t0, 2))
+    # gemm_tc's shared memory is dynamic (ptxas does not report it): the
+    # plan's bytes per block_m, the same for bf16 and int8.
+    log("build", gemm_tc_dynamic_smem_bytes=json.dumps({
+        bm: dg.tc_plan(1024, 256, 1024, block_m=bm, block_k=512,
+                       working_set=1, dtype=torch.bfloat16)["smem_bytes"]
+        for bm in dg.TC_BLOCK_M}))
 
     prefill_err = phase_kernels()
     gemm_errs = phase_gemm_kernels()
@@ -686,13 +770,19 @@ def main() -> int:
         by_path.update(extra or {})
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
+    route_launches = roofline.perf_stats()["route_launches"]
+
     def gemm_entry(name, replaces):
         g = dict(gemm[name])
         err = max(g.pop("max_abs_err"), gemm_errs[name])
         return dict(name=name, route="cuda",
                     source="src/repro_torch/kernels/csrc/dispersed_gemm.cu",
                     replaces=replaces, **launches(name), max_abs_err=err,
-                    shape=[GEMM_M, GEMM_K, GEMM_N], dtype="bfloat16", **g)
+                    shape=[GEMM_M, GEMM_K, GEMM_N], dtype="bfloat16",
+                    dtype_routes=dict(float32="fma", bfloat16="tc",
+                                      int8="tc"),
+                    roofline_launches_by_precision_and_route=route_launches,
+                    **g)
 
     k3 = gemm_entry("matmul_grouped",
                     "src/repro/kernels/dispersed_gemm.py:117")

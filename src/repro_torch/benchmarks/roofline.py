@@ -23,7 +23,9 @@ Differences from the reference: ``device`` picks where the kernels run
 median of CUDA-event timings of back-to-back calls on the card and of
 ``time.perf_counter`` on the CPU; ``json_extra()`` records ``device``
 where the reference records ``interpret``; ``perf_stats()`` reports
-kernel launches and plain-twin calls counted in the wrappers.  The
+kernel launches and plain-twin calls counted in the wrappers, and the
+GEMM launches of each precision by route (``route_launches``: tensor
+cores or CUDA-core FMAs, see ``dispersed_gemm``).  The
 reference's legacy dry-run table needs the launch layer and is not
 ported yet.
 
@@ -78,6 +80,7 @@ _COUNTED = {
 
 _LAST_EXTRA: dict = {}
 _STATS: dict = {}
+_ROUTES: dict = {}       # precision -> {"tc": launches, "fma": launches}
 
 
 def _counts() -> dict:
@@ -145,7 +148,13 @@ def _gemm_point(case, m, k, n, w, prec, *, block_m, block_k, device,
         model_bytes, vmem_acc = model["grouped"], model["vmem_acc_bytes"]
         name = f"{case}_W{w}_{prec}"
     counted = traffic.count(schedule)["total"]
+    cuda_fn = (dispersed_gemm.matmul_dispersed_cuda if w == 0
+               else dispersed_gemm.matmul_grouped_cuda)
+    before = (cuda_fn.launches_tc, cuda_fn.launches_fma)
     us = _measure(fn, device, repeats)
+    routes = _ROUTES.setdefault(prec, dict(tc=0, fma=0))
+    routes["tc"] += cuda_fn.launches_tc - before[0]
+    routes["fma"] += cuda_fn.launches_fma - before[1]
     return dict(
         name=name, case=case, kernel="gemm", working_set=w, precision=prec,
         block_m=block_m, block_k=block_k, us_per_call=round(us, 1),
@@ -205,6 +214,7 @@ def run_measured(smoke: bool = False, repeats: int = 3, device="cuda"):
     """
     dev = resolve_device(device)
     before = _counts()
+    _ROUTES.clear()
     gemm_cases = SMOKE_GEMM_CASES if smoke else GEMM_CASES
     flash_cases = SMOKE_FLASH_CASES if smoke else FLASH_CASES
     w_axis = SMOKE_W_AXIS if smoke else W_AXIS
@@ -308,7 +318,8 @@ def run_measured(smoke: bool = False, repeats: int = 3, device="cuda"):
     _STATS.update(
         device=str(dev),
         kernel_launches={n: after[n][0] - before[n][0] for n in after},
-        plain_calls={n: after[n][1] - before[n][1] for n in after})
+        plain_calls={n: after[n][1] - before[n][1] for n in after},
+        route_launches={p: dict(r) for p, r in _ROUTES.items()})
     global _LAST_EXTRA
     _LAST_EXTRA = dict(
         rows=[{k: (v if not isinstance(v, bool) else bool(v))
@@ -352,7 +363,8 @@ def json_extra() -> dict:
 
 def perf_stats() -> dict:
     """Kernel launches and plain-twin calls of the last ``run_measured``,
-    per kernel, counted in the wrappers."""
+    per kernel, counted in the wrappers; and its GEMM launches per
+    precision and route (``route_launches``)."""
     return dict(_STATS)
 
 

@@ -9,11 +9,24 @@ Port of the Pallas TPU kernels ``repro/kernels/dispersed_gemm.py``:
   * :func:`matmul_dispersed` (K4) — the W=0 extreme: the f32 accumulator
     round-trips through device memory on every k step.
 
-On Hopper both run one CUDA kernel (``csrc/dispersed_gemm.cu``, which
-says how the TPU schedule maps onto CTAs and what bounds it).  Each has a
-plain twin that computes A@B block by block in k order in f32 and casts
-at the end; a CPU tensor goes to the twin, a CUDA tensor to the kernel,
-which launches or raises.
+On Hopper both run from one CUDA source (``csrc/dispersed_gemm.cu``,
+which says how the TPU schedule maps onto CTAs and what bounds it), by
+one of two routes chosen from the inputs' dtype alone:
+
+  * bfloat16 and int8 take the tensor-core route (``gemm_tc``: TMA,
+    ``wgmma``, K3's W row tiles as one cluster of W CTAs sharing each B
+    chunk by TMA multicast).  It takes block_m in (64, 128, 256), k a
+    multiple of 64 (and K4's block_k too), W <= 8, n a multiple of 8 for
+    bfloat16 and of 4 for K4 (TMA's 16-byte rows); :func:`tc_plan`
+    states the tiles and raises ``ValueError`` for anything else.
+  * float32 takes the FMA route (``gemm_rows`` on the CUDA cores, no
+    TF32), whose CTA holds W * block_m rows: a power of two in [8, 2048].
+
+Each ``*_cuda`` function counts its launches in ``launches`` and, per
+route, in ``launches_tc`` and ``launches_fma``.  There is no fallback
+from one route to the other.  Each kernel has a plain twin that computes
+A@B block by block in k order in f32 and casts at the end; a CPU tensor
+goes to the twin, a CUDA tensor to the kernel, which launches or raises.
 
 ``hbm_traffic_model`` gives the closed-form bytes for the roofline;
 ``grouped_schedule`` / ``dispersed_schedule`` expose the reference's grids
@@ -33,6 +46,15 @@ from repro_torch.kernels.ref import cast_like
 
 ACC_BYTES = 4      # both schedules accumulate in f32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# The tensor-core route's tiling (csrc/dispersed_gemm.cu, namespace tc).
+TC_BLOCK_M = (64, 128, 256)
+TC_K_CHUNK = 64            # k per shared-memory stage: 128 bytes of bf16
+TC_MAX_CLUSTER = 8         # CTAs of a portable thread-block cluster
+SMEM_LIMIT = 232448        # shared memory one block may use on sm_90
+_TC_ALIGN, _TC_MAX_STAGES, _TC_BARRIERS = 1024, 5, 16
+# The FMA route's CTA (csrc/dispersed_gemm.cu, gemm_rows).
+_FMA_ACC_PER_CTA, _FMA_KC, _FMA_PAD = 16384, 16, 4
 
 
 def _check_tiles(m: int, k: int, k2: int, *, block_m: int, block_k: int):
@@ -72,6 +94,86 @@ def _check_working_set(working_set: int, nm: int) -> tuple[int, int]:
             f"the m-tile count nm={nm}; legal working sets: "
             f"{[d for d in range(1, nm + 1) if nm % d == 0]}")
     return w, nm // w
+
+
+def tc_plan(m: int, n: int, k: int, *, block_m: int, block_k: int,
+            working_set: int, dtype) -> dict:
+    """The route and CTA tiling the card takes for ``A (m, k) @ B (k, n)``
+    of ``dtype``: K3 for ``working_set >= 1``, K4 for ``working_set=0``.
+
+    Returns ``route`` ("tc" for bfloat16 and int8, "fma" for float32),
+    ``cluster`` (CTAs per cluster: W for K3 on the tensor cores, else 1),
+    ``block_m`` and ``n_tile`` (the CTA's tile of C; on the tensor cores
+    ``n_tile`` depends on block_m only, never on W), ``stages`` (shared-
+    memory stages), ``smem_bytes`` and ``acc_per_thread`` (f32
+    accumulators a thread holds); for K4 on the tensor cores also
+    ``fill_stages`` and ``fill_smem_bytes``: the steps that start from
+    the f32 C buffer keep the C tile in shared memory beside fewer
+    stages.  Raises the reference's ``ValueError``s for the tiling and
+    the route's own for what its kernel does not take; the C entry
+    points check the same rules.
+    """
+    block_m, block_k, nm, _ = _check_tiles(m, k, k, block_m=block_m,
+                                           block_k=block_k)
+    w = _check_working_set(working_set, nm)[0] if working_set else 0
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"dispersed_gemm takes float32, bfloat16 or int8, "
+                         f"not {dtype}")
+    if dtype == torch.float32:
+        rows = w * block_m if w else block_m
+        if rows < 8 or rows > 2048 or rows & (rows - 1):
+            raise ValueError(
+                f"dispersed_gemm: the kernel's CTA holds {rows} rows "
+                f"(working_set * block_m); it takes a power of two in "
+                f"[8, 2048]")
+        cols = _FMA_ACC_PER_CTA // rows
+        return dict(route="fma", cluster=1, block_m=rows, n_tile=cols,
+                    stages=1, acc_per_thread=64,
+                    smem_bytes=4 * _FMA_KC * (rows + _FMA_PAD + cols))
+    if block_m not in TC_BLOCK_M:
+        raise ValueError(
+            f"dispersed_gemm: the tensor-core route takes block_m in "
+            f"{TC_BLOCK_M} (wgmma's 64-row tiles), got {block_m}")
+    if w > TC_MAX_CLUSTER:
+        raise ValueError(
+            f"dispersed_gemm: the tensor-core route holds a group's W row "
+            f"tiles in one cluster of at most {TC_MAX_CLUSTER} CTAs, got "
+            f"working_set={w}")
+    if k % TC_K_CHUNK or (not w and block_k % TC_K_CHUNK):
+        raise ValueError(
+            f"dispersed_gemm: the tensor-core route walks k in chunks of "
+            f"{TC_K_CHUNK}; k={k}" + ("" if w else f" and block_k={block_k}")
+            + f" must be multiples of {TC_K_CHUNK}")
+    if dtype == torch.bfloat16 and n % 8:
+        raise ValueError(
+            f"dispersed_gemm: the bfloat16 route reads B by TMA, whose rows "
+            f"must be a multiple of 16 bytes; n={n} is not a multiple of 8")
+    if not w and n % 4:
+        raise ValueError(
+            f"dispersed_gemm: K4 on the tensor cores reads its f32 C buffer "
+            f"by TMA, whose rows must be a multiple of 16 bytes; n={n} is "
+            f"not a multiple of 4")
+    n_tile = 128 if block_m == 256 else 256
+    wg_m, wg_n = (64, n_tile // 2) if block_m == 64 else (block_m // 2,
+                                                          n_tile)
+    stage = (block_m + n_tile) * TC_K_CHUNK * 2
+
+    def ring(c_bytes):
+        extra = c_bytes + (_TC_BARRIERS if c_bytes else 0)
+        stages = min(_TC_MAX_STAGES, (SMEM_LIMIT - _TC_ALIGN - extra)
+                     // (stage + _TC_BARRIERS))
+        return stages, _TC_ALIGN + stages * (stage + _TC_BARRIERS) + extra
+
+    stages, smem = ring(0)
+    plan = dict(route="tc", cluster=max(w, 1), block_m=block_m,
+                n_tile=n_tile, stages=stages,
+                acc_per_thread=wg_m * wg_n // 128, smem_bytes=smem)
+    if not w:
+        # K4's steps after the first also hold the f32 C tile in shared
+        # memory, loaded by TMA
+        plan["fill_stages"], plan["fill_smem_bytes"] = ring(
+            block_m * n_tile * ACC_BYTES)
+    return plan
 
 
 def _grouped_maps(w: int):
@@ -151,22 +253,33 @@ def _check_cuda(a, b, name: str):
         raise ValueError(f"{name} needs row-major contiguous a and b")
 
 
+# The C entry points' parameters: a, b, acc, out, then ints, then the
+# stream (csrc/dispersed_gemm.cu).
+ARGTYPES = {
+    "gemm_rows_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p],
+    "gemm_tc_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p],
+}
+
+
+def _stream(a):
+    return torch.cuda.current_stream(a.device).cuda_stream
+
+
 def _launch(a, b, acc, out, *, k_begin, k_end, rows, load_acc, store_out):
+    """The FMA route (f32): one ``gemm_rows`` launch."""
     from repro_torch.kernels import _build
 
-    lib = _build.load("dispersed_gemm")
-    fn = lib.gemm_rows_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load("dispersed_gemm").gemm_rows_launch
+    fn.argtypes, fn.restype = ARGTYPES["gemm_rows_launch"], ctypes.c_int
     m, k = a.shape
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(),
                  acc.data_ptr() if acc is not None else None,
                  out.data_ptr() if out is not None else None,
                  m, b.shape[1], k, k_begin, k_end, rows, int(load_acc),
-                 int(store_out), _DTYPE_CODE[a.dtype], stream)
+                 int(store_out), _DTYPE_CODE[a.dtype], _stream(a))
     if err == -1:
         raise ValueError(
             f"dispersed_gemm: the kernel's CTA holds {rows} rows "
@@ -177,18 +290,63 @@ def _launch(a, b, acc, out, *, k_begin, k_end, rows, load_acc, store_out):
                            f"cudaError {err}")
 
 
+def _launch_tc(a, b, acc, out, *, k_begin, k_end, plan, load_acc,
+               store_out):
+    """The tensor-core route (bf16, int8): one ``gemm_tc`` launch."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("dispersed_gemm").gemm_tc_launch
+    fn.argtypes, fn.restype = ARGTYPES["gemm_tc_launch"], ctypes.c_int
+    m, k = a.shape
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(),
+                 acc.data_ptr() if acc is not None else None,
+                 out.data_ptr() if out is not None else None,
+                 m, b.shape[1], k, k_begin, k_end, plan["block_m"],
+                 plan["cluster"], int(load_acc), int(store_out),
+                 _DTYPE_CODE[a.dtype], _stream(a))
+    if err == -1:
+        raise ValueError(
+            f"dispersed_gemm: the tensor-core kernel refused {plan} for "
+            f"{tuple(a.shape)} @ {tuple(b.shape)} (a and b must start on "
+            f"16-byte boundaries)")
+    if err == -2:
+        raise ValueError(
+            f"dispersed_gemm: this card holds no cluster of "
+            f"{plan['cluster']} CTAs of {plan['smem_bytes']} bytes of "
+            f"shared memory (working_set={plan['cluster']})")
+    if err:
+        raise RuntimeError(f"dispersed_gemm tensor-core launch failed "
+                           f"(cluster of {plan['cluster']}): cudaError {err}")
+
+
+def _count(fn, plan):
+    fn.launches += 1
+    if plan["route"] == "tc":
+        fn.launches_tc += 1
+    else:
+        fn.launches_fma += 1
+
+
 def matmul_grouped_cuda(a, b, *, block_m: int = 128, block_k: int = 512,
                         working_set: int = 4):
-    """K3 on the card: one launch, one CTA per (group, N slice)."""
+    """K3 on the card: one launch.  bf16/int8: tensor cores, a cluster of
+    W CTAs per group; f32: CUDA cores, one CTA per (group, N slice)."""
     m, k, k2, n = _shapes(a, b)
     block_m, block_k, nm, _ = _check_tiles(m, k, k2, block_m=block_m,
                                            block_k=block_k)
     w, _ = _check_working_set(working_set, nm)
     _check_cuda(a, b, "matmul_grouped_cuda")
+    plan = tc_plan(m, n, k, block_m=block_m, block_k=block_k,
+                   working_set=w, dtype=a.dtype)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    _launch(a, b, None, out, k_begin=0, k_end=k, rows=w * block_m,
-            load_acc=False, store_out=True)
-    matmul_grouped_cuda.launches += 1
+    if plan["route"] == "tc":
+        _launch_tc(a, b, None, out, k_begin=0, k_end=k, plan=plan,
+                   load_acc=False, store_out=True)
+    else:
+        _launch(a, b, None, out, k_begin=0, k_end=k, rows=plan["block_m"],
+                load_acc=False, store_out=True)
+    _count(matmul_grouped_cuda, plan)
     return out
 
 
@@ -199,20 +357,25 @@ def matmul_dispersed_cuda(a, b, *, block_m: int = 128, block_k: int = 512):
     block_m, block_k, _, nk = _check_tiles(m, k, k2, block_m=block_m,
                                            block_k=block_k)
     _check_cuda(a, b, "matmul_dispersed_cuda")
+    plan = tc_plan(m, n, k, block_m=block_m, block_k=block_k,
+                   working_set=0, dtype=a.dtype)
     acc = torch.empty((m, n), dtype=torch.float32, device=a.device)
     out = acc if a.dtype == torch.float32 else torch.empty(
         (m, n), dtype=a.dtype, device=a.device)
     for ik in range(nk):
         last = ik == nk - 1
-        _launch(a, b, acc, out if last else None, k_begin=ik * block_k,
-                k_end=(ik + 1) * block_k, rows=block_m, load_acc=ik > 0,
-                store_out=last)
-        matmul_dispersed_cuda.launches += 1
+        kw = dict(k_begin=ik * block_k, k_end=(ik + 1) * block_k,
+                  load_acc=ik > 0, store_out=last)
+        if plan["route"] == "tc":
+            _launch_tc(a, b, acc, out if last else None, plan=plan, **kw)
+        else:
+            _launch(a, b, acc, out if last else None, rows=block_m, **kw)
+        _count(matmul_dispersed_cuda, plan)
     return out
 
 
-matmul_grouped_cuda.launches = 0
-matmul_dispersed_cuda.launches = 0
+for _fn in (matmul_grouped_cuda, matmul_dispersed_cuda):
+    _fn.launches = _fn.launches_tc = _fn.launches_fma = 0
 
 
 def _dispatch(plain, cuda, a, b, **kw):
