@@ -5,7 +5,8 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
   1. build     compile every CUDA kernel of the port from src/ (nvcc,
-               sm_90a), one nvcc per source, all started together;
+               sm_90a), one nvcc per source, all started together, and
+               hold dispersed_gemm.tc_plan against the built GEMM's tile;
   2. kernels   hold each kernel against its plain-torch twin on the card at
                the main paths' shapes and a few edge shapes: K5 flash
                attention (f32, bf16, int8), K3 grouped and K4 dispersed
@@ -28,9 +29,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                points; then vmem_dispersion's spot check;
   6. timing    each kernel at its main shape (K5 at the prefill shape, K3
                W=1/W=4 and K4 at granite-8b's MLP GEMM, where K3 is
-               bitwise equal across W and K4 to K3 in bf16 and int8; K6 on
-               its rows) beside its bound, its plain twin and the library
-               call computing the same function.
+               bitwise equal across W and K4 to K3 in bf16 and int8, timed
+               in GEMM_ROUNDS rounds; K6 on its rows) beside its bound, its
+               plain twin and the library call computing the same function.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line {"ok": true, "device": {...}}.  Without a CUDA
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -67,6 +69,8 @@ PREFILL_BATCH, PREFILL_LEN = 4, 512
 # granite-8b's MLP GEMM, vmem_dispersion's shape: tokens x d x d_ff
 GEMM_M, GEMM_K, GEMM_N = 8192, 4096, 14336
 GEMM_BLOCK_M, GEMM_BLOCK_K = 128, 512
+# K3 W=1, K3 W=4 and K4 at that shape are timed in this many rounds
+GEMM_ROUNDS = 8
 NORM_ROWS, NORM_D = 8192, 4096
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
@@ -270,12 +274,6 @@ def check_gemm(name, a, b, *, w, block_m, block_k):
     return got, err
 
 
-def route_launches() -> dict:
-    return {name: dict(tc=fn.launches_tc, fma=fn.launches_fma)
-            for name, fn in (("matmul_grouped", dg.matmul_grouped_cuda),
-                             ("matmul_dispersed", dg.matmul_dispersed_cuda))}
-
-
 def phase_gemm_kernels() -> dict:
     """K3 (W = 1, 2, 4) and K4 against their plain twins at the roofline's
     shapes, the equal-footprint points and a ragged n, in f32 (FMA route),
@@ -342,8 +340,6 @@ def phase_gemm_kernels() -> dict:
         refused = "power of two" in str(e)
     log("kernels", case="grouped_f32_cta_rows_192_refused", refused=refused)
     check(refused, "matmul_grouped took a CTA of 192 rows on the FMA route")
-    log("kernels", case="route_launches", launches=json.dumps(
-        route_launches()))
     return errs
 
 
@@ -575,6 +571,25 @@ def host_vs_device(calls: int = 20) -> None:
 
 # ------------------------------------------------------------------ timing --
 
+def check_tc_plan() -> None:
+    """dispersed_gemm.tc_plan's tile against the built kernel's
+    (gemm_tc_tile) at each block_m, with and without K4's f32 C tile in
+    shared memory (the same for bf16 and int8).  The log gives the
+    kernel's dynamic shared memory, which ptxas does not report."""
+    for bm in dg.TC_BLOCK_M:
+        plan = dg.tc_plan(1024, 256, 1024, block_m=bm, block_k=512,
+                          working_set=0, dtype=torch.bfloat16)
+        for fill in (False, True):
+            pre = "fill_" if fill else ""
+            want = dict(n_tile=plan["n_tile"], stages=plan[pre + "stages"],
+                        smem_bytes=plan[pre + "smem_bytes"])
+            built = dg.built_tc_tile(bm, fill)
+            log("build", gemm_tc_tile=f"block_m={bm}", fill=fill,
+                **built, tc_plan_agrees=built == want)
+            check(built == want, f"tc_plan {want} != the built kernel's "
+                                 f"{built} at block_m={bm}, fill={fill}")
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     """The larger of bytes over the HBM rate and flops over the dtype's
     peak, and which of the two it is."""
@@ -645,30 +660,38 @@ def phase_gemm_timing() -> dict:
     fns = {name: (lambda w=w: ops.matmul(a, b, working_set=w, **kw)) if w
            else (lambda: ops.matmul_dispersed(a, b, **kw))
            for name, w in kernels}
-    # The card slows as it heats under back-to-back GEMMs, so the three are
-    # timed in turns, forward then backward, and each time is the mean of
-    # its two samples.
     counts = {name: dg.matmul_grouped_cuda if w else
               dg.matmul_dispersed_cuda for name, w in kernels}
-    before = {name: (c.launches, c.launches_tc, c.launches_fma)
-              for name, c in counts.items()}
+    # The card slows as it heats under back-to-back GEMMs: one run that
+    # timed W=4 right after W=1 read W=4 10 % slower, the next, in turns,
+    # 1 % faster.  So the three are timed in GEMM_ROUNDS rounds, the order
+    # reversed every other round; each time is the median of its rounds,
+    # and W=4 / W=1 is given per round and as the median.
     samples = {name: [] for name in fns}
-    for name, _ in kernels + kernels[::-1]:
-        samples[name].append(cuda_ms(fns[name], warmup=1, iters=iters))
+    routes = {name: [0, 0] for name in fns}   # tc, fma launches
+    for r in range(GEMM_ROUNDS):
+        for name, _ in kernels if r % 2 == 0 else kernels[::-1]:
+            c = counts[name]
+            tc0, fma0 = c.launches_tc, c.launches_fma
+            samples[name].append(cuda_ms(fns[name], warmup=1, iters=iters))
+            routes[name][0] += c.launches_tc - tc0
+            routes[name][1] += c.launches_fma - fma0
+    ratios = [w4 / w1 for w4, w1 in zip(samples["matmul_grouped"],
+                                        samples["matmul_grouped_W1"])]
+    log("timing", check="grouped_W4_over_W1", mkn=[m, k, n],
+        dtype="bfloat16", per_round=ratios,
+        median=statistics.median(ratios), limit=1.10)
     out = {}
     for name, w in kernels:
         model = dg.hbm_traffic_model(m, n, k, working_set=max(w, 1),
                                      bytes_per_el=2, **kw)
         sched = model["grouped"] if w else model["dispersed"]
         sched_ms, sched_by = bound_ms(sched, flops, torch.bfloat16)
-        counter = counts[name]
-        ms = sum(samples[name]) / 2
-        calls = 2 * (1 + iters) * (2 if counter is dg.matmul_grouped_cuda
-                                   else 1)
-        per_call, tc, fma = ((after - b0) / calls for after, b0 in zip(
-            (counter.launches, counter.launches_tc, counter.launches_fma),
-            before[name]))
-        check(tc == per_call and fma == 0,
+        ms = statistics.median(samples[name])
+        calls = GEMM_ROUNDS * (1 + iters)
+        tc, fma = (x / calls for x in routes[name])
+        per_call = tc + fma
+        check(tc > 0 and fma == 0,
               f"{name} in bf16 left the tensor-core route: {tc}, {fma}")
         log("timing", kernel=name, mkn=[m, k, n], dtype="bfloat16",
             working_set=w, ms=ms, samples_ms=samples[name], iters=iters,
@@ -733,16 +756,12 @@ def main() -> int:
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
-                                       "spill", "warning")):
+                                       "spill", "warning",
+                                       "Performance Loss")):
                 print(f"[build] {name}: {line.strip()}")
     log("build", kernels=sorted(logs), seconds=round(
         time.perf_counter() - t0, 2))
-    # gemm_tc's shared memory is dynamic (ptxas does not report it): the
-    # plan's bytes per block_m, the same for bf16 and int8.
-    log("build", gemm_tc_dynamic_smem_bytes=json.dumps({
-        bm: dg.tc_plan(1024, 256, 1024, block_m=bm, block_k=512,
-                       working_set=1, dtype=torch.bfloat16)["smem_bytes"]
-        for bm in dg.TC_BLOCK_M}))
+    check_tc_plan()
 
     prefill_err = phase_kernels()
     gemm_errs = phase_gemm_kernels()
@@ -779,8 +798,6 @@ def main() -> int:
                     source="src/repro_torch/kernels/csrc/dispersed_gemm.cu",
                     replaces=replaces, **launches(name), max_abs_err=err,
                     shape=[GEMM_M, GEMM_K, GEMM_N], dtype="bfloat16",
-                    dtype_routes=dict(float32="fma", bfloat16="tc",
-                                      int8="tc"),
                     roofline_launches_by_precision_and_route=route_launches,
                     **g)
 

@@ -17,8 +17,7 @@
 //   bf16, int8  `gemm_tc`: tensor cores (wgmma), A and B staged through a
 //               ring of shared-memory stages by a producer warpgroup.
 //   f32         `gemm_rows`: FP32 FMAs on the CUDA cores.  TF32 would keep
-//               about three decimal digits, too few for the f32 tolerance;
-//               this route is unchanged since it was first written.
+//               about three decimal digits, too few for the f32 tolerance.
 //
 // What bounds them on this card, at granite-8b's MLP GEMM (8192 x 4096 x
 // 14336, bf16, block_m 128, block_k 512): 0.96 TFLOP, 0.97 ms at the
@@ -85,7 +84,7 @@
 // rows columns, i.e. 16384 f32 accumulators in registers (8 x 8 per
 // thread, 256 threads).  It walks k in [k_begin, k_end) in chunks of KC:
 // each chunk of A (rows x KC) and of B (KC x cols) is staged once in shared
-// memory as f32 and every thread applies it to its 8 x 8 accumulators.
+// memory and every thread applies it to its 8 x 8 accumulators.
 // K3 is one launch with rows = W * block_m; K4 one launch per k step with
 // rows = block_m, C in an f32 buffer read and written each step.  Every
 // element of C is one chain of f32 FMAs over k = 0, 1, ..., K-1, so K3 is
@@ -111,14 +110,13 @@ constexpr int KC = 16;              // k per shared-memory chunk
 constexpr int PAD = 4;              // A rows padded: fewer bank conflicts
 
 struct Params {
-  const void* a;
-  const void* b;
-  float* acc;   // f32 C buffer (K4), read when load_acc, written otherwise
-  void* out;    // C at A's type, written when store_out
+  const float* a;
+  const float* b;
+  float* acc;   // C buffer (K4), read when load_acc, written otherwise
+  float* out;   // C, written when store_out
   int m, n, k, k_begin, k_end, rows, cols, load_acc, store_out;
 };
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS, 2) gemm_rows(Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -141,8 +139,6 @@ __global__ void __launch_bounds__(NTHREADS, 2) gemm_rows(Params p) {
     cc[i + 4] = col0 + NS / 2 + tx * 4 + i;
   }
 
-  const T* A = static_cast<const T*>(p.a);
-  const T* B = static_cast<const T*>(p.b);
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -155,13 +151,13 @@ __global__ void __launch_bounds__(NTHREADS, 2) gemm_rows(Params p) {
     __syncthreads();  // the previous chunk's readers are done
     for (int i = tid; i < R * KC; i += NTHREADS) {
       const int r = i / KC, kk = i % KC, kg = kc + kk;
-      As[kk * AS + r] =
-          kg < p.k_end ? to_f32(A[(size_t)(row0 + r) * p.k + kg]) : 0.f;
+      As[kk * AS + r] = kg < p.k_end ? p.a[(size_t)(row0 + r) * p.k + kg]
+                                     : 0.f;
     }
     for (int i = tid; i < KC * NS; i += NTHREADS) {
       const int kk = i / NS, c = i % NS, kg = kc + kk, cg = col0 + c;
-      Bs[kk * NS + c] = (kg < p.k_end && cg < p.n)
-                            ? to_f32(B[(size_t)kg * p.n + cg]) : 0.f;
+      Bs[kk * NS + c] =
+          (kg < p.k_end && cg < p.n) ? p.b[(size_t)kg * p.n + cg] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -181,56 +177,40 @@ __global__ void __launch_bounds__(NTHREADS, 2) gemm_rows(Params p) {
     }
   }
 
-  T* out = static_cast<T*>(p.out);
+  float* out = p.store_out ? p.out : p.acc;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (cc[j] >= p.n) continue;
-      const size_t idx = (size_t)rr[i] * p.n + cc[j];
-      if (p.store_out)
-        store(out + idx, acc[i][j]);
-      else
-        p.acc[idx] = acc[i][j];
-    }
-}
-
-template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * KC * (p.rows + PAD + p.cols);
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + p.cols - 1) / p.cols, p.m / p.rows);
-  gemm_rows<T><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+    for (int j = 0; j < 8; ++j)
+      if (cc[j] < p.n) out[(size_t)rr[i] * p.n + cc[j]] = acc[i][j];
 }
 
 }  // namespace
 
-// C rows [0, m) of A (m, k) @ B (k, n), both row-major, over
+// f32 C rows [0, m) of A (m, k) @ B (k, n), both row-major, over
 // k in [k_begin, k_end).  `rows` (a power of two in [8, 2048] dividing m)
-// is the CTA's row count.  load_acc: start from `acc` (f32, (m, n)) instead
-// of 0.  store_out: write `out` at the input type, else write `acc`.
-// dtype: 0 = float32, 1 = bfloat16, 2 = int8.  Returns -1 for arguments
-// the kernel does not take (the wrapper raises ValueError), else the
-// launch's cudaError_t (0 on success); runs on `stream` and does not
-// synchronise.
+// is the CTA's row count.  load_acc: start from `acc` ((m, n)) instead of
+// 0.  store_out: write `out`, else write `acc`.  dtype must be 0 (float32:
+// bf16 and int8 take gemm_tc_launch).  Returns -1 for arguments the kernel
+// does not take (the wrapper raises ValueError), else the launch's
+// cudaError_t (0 on success); runs on `stream` and does not synchronise.
 extern "C" int gemm_rows_launch(const void* a, const void* b, float* acc,
                                 void* out, int m, int n, int k, int k_begin,
                                 int k_end, int rows, int load_acc,
                                 int store_out, int dtype, void* stream) {
-  if (rows < 8 || rows > 2048 || (rows & (rows - 1)) || m % rows ||
-      k_begin < 0 || k_begin >= k_end || k_end > k || n <= 0)
+  if (dtype != 0 || rows < 8 || rows > 2048 || (rows & (rows - 1)) ||
+      m % rows || k_begin < 0 || k_begin >= k_end || k_end > k || n <= 0)
     return -1;
-  Params p{a, b, acc, out, m, n, k, k_begin, k_end, rows,
-           ACC_PER_CTA / rows, load_acc, store_out};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? launch<float>(p, s)
-                  : dtype == 1 ? launch<__nv_bfloat16>(p, s)
-                  : dtype == 2 ? launch<int8_t>(p, s)
-                               : cudaErrorInvalidValue;
-  return (int)err;
+  const Params p{static_cast<const float*>(a), static_cast<const float*>(b),
+                 acc, static_cast<float*>(out), m, n, k, k_begin, k_end,
+                 rows, ACC_PER_CTA / rows, load_acc, store_out};
+  const size_t smem = sizeof(float) * KC * (p.rows + PAD + p.cols);
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.n + p.cols - 1) / p.cols, p.m / p.rows);
+  gemm_rows<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -253,7 +233,7 @@ constexpr int BAND_ROWS = 2048;         // rows of C per rasterisation band
 // depends on block_m only, never on W.  FILL: K4's launches that start
 // from the f32 C buffer keep a block_m x n_tile f32 C tile in shared
 // memory beside fewer stages.  kernels/dispersed_gemm.py `tc_plan` states
-// the same numbers.
+// the same numbers; chip_smoke.py holds it against `gemm_tc_tile`.
 template <int BM, bool FILL = false>
 struct Tile {
   static constexpr int BN = BM == 256 ? 128 : 256;
@@ -759,6 +739,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           for (int i = 0; i < T::ACC; ++i) acc[mt][i] = 0.f;
       }
 
+      // A chunk's wgmmas are waited for before its stage is released.
+      // Keeping one group in flight (chunk c - 1's stage released after
+      // chunk c's wgmmas are issued) measured no faster for K3 and about
+      // 10 % slower for K4 on an H100.
       for (int c = 0; c < nchunks; ++c, ++it) {
         const int s = it % S;
         mbar_wait(bars + 8 * s, (it / S) & 1);
@@ -935,7 +919,27 @@ int launch_fill(const Params& p, int block_m, cudaStream_t stream) {
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
+template <int BM>
+int tile(int fill, int* out) {
+  const int got[2][3] = {
+      {Tile<BM>::BN, Tile<BM>::STAGES, Tile<BM>::SMEM},
+      {Tile<BM, true>::BN, Tile<BM, true>::STAGES, Tile<BM, true>::SMEM}};
+  for (int i = 0; i < 3; ++i) out[i] = got[fill ? 1 : 0][i];
+  return 0;
+}
+
 }  // namespace tc
+
+// The tensor-core route's CTA tile at `block_m` (fill: K4's launches that
+// start from the f32 C buffer): n_tile, stages and dynamic shared-memory
+// bytes, written to out[0..2].  Returns -1 for a block_m the route does
+// not take, else 0.  The wrapper's `tc_plan` must state the same numbers.
+extern "C" int gemm_tc_tile(int block_m, int fill, int* out) {
+  return block_m == 64    ? tc::tile<64>(fill, out)
+         : block_m == 128 ? tc::tile<128>(fill, out)
+         : block_m == 256 ? tc::tile<256>(fill, out)
+                          : -1;
+}
 
 // The tensor-core route: C rows [0, m) of A (m, k) @ B (k, n), both
 // row-major, over k in [k_begin, k_end), as block_m x n_tile CTA tiles in

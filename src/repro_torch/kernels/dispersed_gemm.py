@@ -22,9 +22,9 @@ one of two routes chosen from the inputs' dtype alone:
   * float32 takes the FMA route (``gemm_rows`` on the CUDA cores, no
     TF32), whose CTA holds W * block_m rows: a power of two in [8, 2048].
 
-Each ``*_cuda`` function counts its launches in ``launches`` and, per
-route, in ``launches_tc`` and ``launches_fma``.  There is no fallback
-from one route to the other.  Each kernel has a plain twin that computes
+Each ``*_cuda`` function counts its launches per route, in
+``launches_tc`` and ``launches_fma``; its ``launches`` is their sum.
+There is no fallback from one route to the other.  Each kernel has a plain twin that computes
 A@B block by block in k order in f32 and casts at the end; a CPU tensor
 goes to the twin, a CUDA tensor to the kernel, which launches or raises.
 
@@ -38,6 +38,7 @@ bytes measured on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -260,6 +261,7 @@ ARGTYPES = {
         ctypes.c_void_p],
     "gemm_tc_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p],
+    "gemm_tc_tile": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -320,14 +322,53 @@ def _launch_tc(a, b, acc, out, *, k_begin, k_end, plan, load_acc,
                            f"(cluster of {plan['cluster']}): cudaError {err}")
 
 
-def _count(fn, plan):
-    fn.launches += 1
-    if plan["route"] == "tc":
-        fn.launches_tc += 1
-    else:
-        fn.launches_fma += 1
+def built_tc_tile(block_m: int, fill: bool) -> dict:
+    """The built kernel's CTA tile at ``block_m`` (``gemm_tc_tile``; fill:
+    K4's launches that start from the f32 C buffer): ``n_tile``,
+    ``stages`` and ``smem_bytes``, the figures :func:`tc_plan` must state.
+    Loads (and if need be builds) the library."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("dispersed_gemm").gemm_tc_tile
+    fn.argtypes, fn.restype = ARGTYPES["gemm_tc_tile"], ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    if fn(block_m, int(fill), out):
+        raise ValueError(f"dispersed_gemm: the tensor-core route takes "
+                         f"block_m in {TC_BLOCK_M}, got {block_m}")
+    return dict(n_tile=out[0], stages=out[1], smem_bytes=out[2])
 
 
+class _RouteCounted:
+    """A GEMM wrapper that counts its launches per route, in
+    ``launches_tc`` and ``launches_fma``.  ``launches``, the count every
+    kernel wrapper of the port has, is their sum; setting it to 0 resets
+    both."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self.launches_tc = self.launches_fma = 0
+
+    def __call__(self, a, b, **kw):
+        return self.__wrapped__(a, b, **kw)
+
+    @property
+    def launches(self) -> int:
+        return self.launches_tc + self.launches_fma
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        if value:
+            raise ValueError(f"a launch count is reset to 0, not {value}")
+        self.launches_tc = self.launches_fma = 0
+
+    def count(self, plan) -> None:
+        if plan["route"] == "tc":
+            self.launches_tc += 1
+        else:
+            self.launches_fma += 1
+
+
+@_RouteCounted
 def matmul_grouped_cuda(a, b, *, block_m: int = 128, block_k: int = 512,
                         working_set: int = 4):
     """K3 on the card: one launch.  bf16/int8: tensor cores, a cluster of
@@ -346,10 +387,11 @@ def matmul_grouped_cuda(a, b, *, block_m: int = 128, block_k: int = 512,
     else:
         _launch(a, b, None, out, k_begin=0, k_end=k, rows=plan["block_m"],
                 load_acc=False, store_out=True)
-    _count(matmul_grouped_cuda, plan)
+    matmul_grouped_cuda.count(plan)
     return out
 
 
+@_RouteCounted
 def matmul_dispersed_cuda(a, b, *, block_m: int = 128, block_k: int = 512):
     """K4 on the card: one launch per k step (nk per call), the f32
     accumulator read from and written back to device memory each step."""
@@ -370,12 +412,8 @@ def matmul_dispersed_cuda(a, b, *, block_m: int = 128, block_k: int = 512):
             _launch_tc(a, b, acc, out if last else None, plan=plan, **kw)
         else:
             _launch(a, b, acc, out if last else None, rows=block_m, **kw)
-        _count(matmul_dispersed_cuda, plan)
+        matmul_dispersed_cuda.count(plan)
     return out
-
-
-for _fn in (matmul_grouped_cuda, matmul_dispersed_cuda):
-    _fn.launches = _fn.launches_tc = _fn.launches_fma = 0
 
 
 def _dispatch(plain, cuda, a, b, **kw):

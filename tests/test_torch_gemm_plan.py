@@ -215,3 +215,36 @@ def test_ctypes_argtypes_match_the_c_entry_points():
         assert len(params) == len(argtypes)
         for p, t in zip(params, argtypes):
             assert ("*" in p) == (t is ctypes.c_void_p), (name, p)
+
+
+def test_launches_is_the_sum_of_the_route_counts():
+    """A GEMM wrapper counts per route; ``launches`` is derived, and a
+    reset to 0 clears both routes."""
+    for fn in (tdg.matmul_grouped_cuda, tdg.matmul_dispersed_cuda):
+        saved = fn.launches_tc, fn.launches_fma
+        try:
+            fn.launches_tc, fn.launches_fma = 3, 5
+            assert fn.launches == 8
+            fn.launches = 0
+            assert (fn.launches_tc, fn.launches_fma, fn.launches) == (0, 0, 0)
+            with pytest.raises(ValueError):
+                fn.launches = 2
+        finally:
+            fn.launches_tc, fn.launches_fma = saved
+        assert fn.__name__.startswith("matmul_") and fn.__doc__
+
+
+@pytest.mark.parametrize("py_name,c_name", [
+    ("TC_K_CHUNK", "KCHUNK"), ("TC_MAX_CLUSTER", "MAX_CLUSTER"),
+    ("SMEM_LIMIT", "SMEM_LIMIT"), ("_TC_ALIGN", "SMEM_ALIGN"),
+    ("_TC_MAX_STAGES", "MAX_STAGES"), ("_FMA_ACC_PER_CTA", "ACC_PER_CTA"),
+    ("_FMA_KC", "KC"), ("_FMA_PAD", "PAD")])
+def test_plan_constants_match_the_c_source(py_name, c_name):
+    """tc_plan's constants are the kernel's (chip_smoke.py also holds the
+    plan's tiles against the built library's ``gemm_tc_tile``)."""
+    import re
+    from pathlib import Path
+    src = (Path(tdg.__file__).parent / "csrc" / "dispersed_gemm.cu"
+           ).read_text()
+    found = re.findall(r"constexpr int " + c_name + r" = (\d+);", src)
+    assert found == [str(getattr(tdg, py_name))]
