@@ -24,8 +24,9 @@ median of CUDA-event timings of back-to-back calls on the card and of
 ``time.perf_counter`` on the CPU; ``json_extra()`` records ``device``
 where the reference records ``interpret``; ``perf_stats()`` reports
 kernel launches and plain-twin calls counted in the wrappers, and the
-GEMM launches of each precision by route (``route_launches``: tensor
-cores or CUDA-core FMAs, see ``dispersed_gemm``).  The
+GEMM and attention launches of each precision by route
+(``route_launches``: tensor cores or CUDA-core FMAs, see
+``dispersed_gemm`` and ``flash_attention``).  The
 reference's legacy dry-run table needs the launch layer and is not
 ported yet.
 
@@ -80,7 +81,8 @@ _COUNTED = {
 
 _LAST_EXTRA: dict = {}
 _STATS: dict = {}
-_ROUTES: dict = {}       # precision -> {"tc": launches, "fma": launches}
+# "gemm" / "flash_attention" -> precision -> {"tc": launches, "fma": ...}
+_ROUTES: dict = {}
 
 
 def _counts() -> dict:
@@ -150,17 +152,25 @@ def _gemm_point(case, m, k, n, w, prec, *, block_m, block_k, device,
     counted = traffic.count(schedule)["total"]
     cuda_fn = (dispersed_gemm.matmul_dispersed_cuda if w == 0
                else dispersed_gemm.matmul_grouped_cuda)
-    before = (cuda_fn.launches_tc, cuda_fn.launches_fma)
-    us = _measure(fn, device, repeats)
-    routes = _ROUTES.setdefault(prec, dict(tc=0, fma=0))
-    routes["tc"] += cuda_fn.launches_tc - before[0]
-    routes["fma"] += cuda_fn.launches_fma - before[1]
+    us = _routed(fn, cuda_fn, "gemm", prec, device, repeats)
     return dict(
         name=name, case=case, kernel="gemm", working_set=w, precision=prec,
         block_m=block_m, block_k=block_k, us_per_call=round(us, 1),
         flops=2 * m * n * k, counted_bytes=counted, model_bytes=model_bytes,
         model_agree=abs(counted - model_bytes) <= AGREE_RTOL * model_bytes,
         vmem_acc_bytes=vmem_acc)
+
+
+def _routed(fn, cuda_fn, kernel: str, prec: str, device, repeats) -> float:
+    """``_measure(fn)``, adding the launches it made on each route of
+    ``cuda_fn`` to ``_ROUTES[kernel][prec]``."""
+    before = (cuda_fn.launches_tc, cuda_fn.launches_fma)
+    us = _measure(fn, device, repeats)
+    routes = _ROUTES.setdefault(kernel, {}).setdefault(prec,
+                                                       dict(tc=0, fma=0))
+    routes["tc"] += cuda_fn.launches_tc - before[0]
+    routes["fma"] += cuda_fn.launches_fma - before[1]
+    return us
 
 
 def _flash_point(case, b, h, s, d, prec, *, device, repeats) -> dict:
@@ -174,7 +184,8 @@ def _flash_point(case, b, h, s, d, prec, *, device, repeats) -> dict:
         bytes_per_el=bpe))["total"]
     fn = lambda: flash_attention.flash_attention(
         q, k, v, block_q=FLASH_BLOCK, block_k=FLASH_BLOCK)
-    us = _measure(fn, device, repeats)
+    us = _routed(fn, flash_attention.flash_attention_cuda, "flash_attention",
+                 prec, device, repeats)
     return dict(
         name=f"{case}_{prec}", case=case, kernel="flash",
         working_set=1, precision=prec, block_m=FLASH_BLOCK,
@@ -319,7 +330,8 @@ def run_measured(smoke: bool = False, repeats: int = 3, device="cuda"):
         device=str(dev),
         kernel_launches={n: after[n][0] - before[n][0] for n in after},
         plain_calls={n: after[n][1] - before[n][1] for n in after},
-        route_launches={p: dict(r) for p, r in _ROUTES.items()})
+        route_launches={kernel: {p: dict(r) for p, r in precs.items()}
+                        for kernel, precs in _ROUTES.items()})
     global _LAST_EXTRA
     _LAST_EXTRA = dict(
         rows=[{k: (v if not isinstance(v, bool) else bool(v))
@@ -363,8 +375,9 @@ def json_extra() -> dict:
 
 def perf_stats() -> dict:
     """Kernel launches and plain-twin calls of the last ``run_measured``,
-    per kernel, counted in the wrappers; and its GEMM launches per
-    precision and route (``route_launches``)."""
+    per kernel, counted in the wrappers; and its GEMM and attention
+    launches per precision and route (``route_launches["gemm"]``,
+    ``route_launches["flash_attention"]``)."""
     return dict(_STATS)
 
 

@@ -93,7 +93,6 @@
 // FP32 FMAs peak at 67 TFLOP/s, so this route cannot come near the
 // tensor-core bound.
 
-#include <cuda.h>  // CUtensorMap and its enums only: no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,6 +100,7 @@
 #include <type_traits>
 
 #include "convert.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -267,10 +267,6 @@ struct Params {
   int band;        // groups per rasterisation band
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
@@ -280,21 +276,6 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n"
                "barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
 }
 
 // Arrive on the barrier at the same offset in CTA `rank` of the cluster.
@@ -308,33 +289,6 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
                : "=r"(remote) : "r"(bar), "r"(rank));
   asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];"
                :: "r"(remote) : "memory");
-}
-
-// Waits for the phase of `parity` to complete.  A phase that never
-// completes is a fault of the kernel: trap after about 2^34 cycles
-// (~10 s) so that the launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(bar)
-      : "memory");
 }
 
 // The same box written to `dst` and signalled on `bar` in every CTA of
@@ -356,31 +310,6 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};"
                :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand:
-// `lbo` and `sbo` in bytes (K-major: sbo = 8 rows of 128 bytes, lbo
-// unused; N-major: lbo = the next 64-column box, sbo = 8 k rows).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmmas.
-__device__ __forceinline__ void fence_operand(float& x) {
-  asm volatile("" : "+f"(x) :: "memory");
 }
 
 // m64nNk16, f32 += bf16 x bf16; A K-major, B N-major (transpose bit set).
@@ -799,33 +728,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     if (W > 1) cluster_sync();
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call; it is looked up through the
-// runtime, so the library needs no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
 }
 
 // A row-major (outer, inner) bf16 or f32 tensor read in 128-byte-swizzled

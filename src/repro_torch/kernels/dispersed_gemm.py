@@ -38,12 +38,12 @@ bytes measured on the card.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.kernels import traffic
 from repro_torch.kernels.ref import cast_like
+from repro_torch.kernels.routes import RouteCounted
 
 ACC_BYTES = 4      # both schedules accumulate in f32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -338,37 +338,7 @@ def built_tc_tile(block_m: int, fill: bool) -> dict:
     return dict(n_tile=out[0], stages=out[1], smem_bytes=out[2])
 
 
-class _RouteCounted:
-    """A GEMM wrapper that counts its launches per route, in
-    ``launches_tc`` and ``launches_fma``.  ``launches``, the count every
-    kernel wrapper of the port has, is their sum; setting it to 0 resets
-    both."""
-
-    def __init__(self, fn):
-        functools.update_wrapper(self, fn)
-        self.launches_tc = self.launches_fma = 0
-
-    def __call__(self, a, b, **kw):
-        return self.__wrapped__(a, b, **kw)
-
-    @property
-    def launches(self) -> int:
-        return self.launches_tc + self.launches_fma
-
-    @launches.setter
-    def launches(self, value: int) -> None:
-        if value:
-            raise ValueError(f"a launch count is reset to 0, not {value}")
-        self.launches_tc = self.launches_fma = 0
-
-    def count(self, plan) -> None:
-        if plan["route"] == "tc":
-            self.launches_tc += 1
-        else:
-            self.launches_fma += 1
-
-
-@_RouteCounted
+@RouteCounted
 def matmul_grouped_cuda(a, b, *, block_m: int = 128, block_k: int = 512,
                         working_set: int = 4):
     """K3 on the card: one launch.  bf16/int8: tensor cores, a cluster of
@@ -391,7 +361,7 @@ def matmul_grouped_cuda(a, b, *, block_m: int = 128, block_k: int = 512,
     return out
 
 
-@_RouteCounted
+@RouteCounted
 def matmul_dispersed_cuda(a, b, *, block_m: int = 128, block_k: int = 512):
     """K4 on the card: one launch per k step (nk per call), the f32
     accumulator read from and written back to device memory each step."""
