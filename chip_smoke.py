@@ -6,9 +6,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. build     compile every CUDA kernel of the port from src/ (nvcc,
                sm_90a), one nvcc per source, all started together, print
-               flash_tc's registers and spills, and hold
-               dispersed_gemm.tc_plan and flash_attention.flash_plan
-               against the built kernels' tiles;
+               flash_tc's and rmsnorm_vec's registers and spills, and hold
+               dispersed_gemm.tc_plan, flash_attention.flash_plan and
+               rmsnorm.rmsnorm_plan against the built kernels' tiles;
   2. kernels   hold each kernel against its plain-torch twin on the card at
                the main paths' shapes and a few edge shapes: K5 flash
                attention (bf16 on the tensor-core route: causal and not,
@@ -18,28 +18,41 @@ Phases, each of which raises on failure (the script then exits non-zero):
                GEMM (f32 on the CUDA-core route; bf16 and int8 on the
                tensor-core route, int8 exactly; K3 bitwise equal across
                W, K4 bitwise equal to K3 on the tensor cores, bf16 W = 3
-               in a cluster of 3), K6 RMSNorm;
-  3. prefill   full-width phi3-mini-3.8b (random weights from a seeded
+               in a cluster of 3), K6 RMSNorm (d = 3072 and 4096 in bf16
+               and f32 on the vec route, row counts that do not fill the
+               persistent grid; a bf16 d no multiple of 8, an unaligned
+               view and a d above the register limit on general; each
+               launch counted on the route its plan names);
+  3. trace     on the host: every rvv program built at its paper size
+               and expanded into the engine's event matrices (T, active
+               registers, bytes), T held to TRACE_T; at reduced size the
+               full-VRF interpreter against the dispersed one (FIFO,
+               capacity 8), bitwise;
+  4. prefill   full-width phi3-mini-3.8b (random weights from a seeded
                generator): Model.prefill on 4 x 512 tokens with the flash
                kernel vs the plain sdpa path, counting kernel launches (all
                on the tensor-core route), and
                a reduced f32 model on the card vs the same on the CPU;
-  4. serve     a ServeEngine with dispersed KV pages answers a seeded
+  5. serve     a ServeEngine with dispersed KV pages answers a seeded
                steady-traffic scenario at full width;
-  5. roofline  the measured roofline (repro_torch.benchmarks.roofline) on
+  6. roofline  the measured roofline (repro_torch.benchmarks.roofline) on
                the card: every row's schedule bytes agree with the closed
                form, the row count is the reference grid's, K3, K4 and
                K5 were launched, the bf16/int8 GEMM rows and the bf16
                attention row on the tensor-core route, the other rows on
                the FMA route; one call's time from idle vs back to back
                vs queued behind a sleep kernel (the device alone) vs the
-               host's issue time at two GEMM points and the attention
-               point in bf16 and f32; then vmem_dispersion's spot check;
-  6. timing    each kernel at its main shape (K5 at the prefill shape,
+               host's issue time at two GEMM points, the attention
+               point in bf16 and f32 and K6 and F.rms_norm at (8192,
+               4096) and (2048, 3072) bf16; then vmem_dispersion's spot
+               check;
+  7. timing    each kernel at its main shape (K5 at the prefill shape,
                timed with scaled_dot_product_attention in FLASH_ROUNDS
                rounds, K3 W=1/W=4 and K4 at granite-8b's MLP GEMM, where
                K3 is bitwise equal across W and K4 to K3 in bf16 and int8,
-               timed in GEMM_ROUNDS rounds; K6 on its rows) beside its
+               timed in GEMM_ROUNDS rounds; K6 with F.rms_norm in
+               NORM_ROUNDS rounds at (8192, 4096) bf16 and f32 and
+               (2048, 3072) bf16) beside its
                bound, its plain twin and the library call computing the
                same function.
 
@@ -65,7 +78,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.benchmarks import roofline, vmem_dispersion  # noqa: E402
+from repro_torch import rvv  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
+from repro_torch.core import events, interpreter, policies  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import dispersed_gemm as dg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -84,6 +99,18 @@ GEMM_ROUNDS = 8
 # K5 and scaled_dot_product_attention at the prefill shape, likewise
 FLASH_ROUNDS = 8
 NORM_ROWS, NORM_D = 8192, 4096
+# K6 and F.rms_norm are timed in this many rounds of NORM_ITERS calls
+NORM_ROUNDS, NORM_ITERS = 8, 50
+# Instructions of each rvv program at its paper_params, in the registry's
+# order (the reference package's build gives the same counts): the trace
+# lengths the engine kernel must take
+TRACE_T = {"pathfinder": 1147, "jacobi2d": 247040, "somier": 1052674,
+           "gemv": 100097, "dropout": 98304, "conv2d_7x7": 1000126,
+           "densenet121_l105": 885537, "resnet50_l10": 9671553,
+           "flashattention2": 2452400, "conv2d_batched": 45729,
+           "mha": 253120}
+# The cVRF the functional check runs: FIFO at this capacity
+TRACE_CHECK_CAPACITY = 8
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
               torch.float32: 67e12}            # FP32 outside tensor cores
@@ -401,27 +428,152 @@ def phase_gemm_kernels() -> dict:
     return errs
 
 
-def phase_norm_kernels() -> float:
-    """K6 against its plain twin at the reference test's shapes."""
+# K6's cases (shape, dtype, how x is made, route): the reference test's
+# shapes, the main norm widths d = 3072 (the prefill's) and 4096 in both
+# dtypes, row counts that do not fill the persistent grid's last pass,
+# and what the vec route leaves to general (a bf16 d no multiple of 8, a
+# view whose base is not 16-byte aligned, a d above the register-resident
+# limit).
+NORM_CASES = [
+    ((2, 128, 512), torch.float32, "contiguous", "vec"),
+    ((2, 64, 1024), torch.bfloat16, "contiguous", "vec"),
+    ((3, 100), torch.float32, "contiguous", "vec"),
+    ((2048, 3072), torch.bfloat16, "contiguous", "vec"),
+    ((2048, 3072), torch.float32, "contiguous", "vec"),
+    ((NORM_ROWS, NORM_D), torch.bfloat16, "contiguous", "vec"),
+    ((NORM_ROWS, NORM_D), torch.float32, "contiguous", "vec"),
+    ((5003, 4096), torch.bfloat16, "contiguous", "vec"),
+    ((1111, 3072), torch.float32, "contiguous", "vec"),
+    ((300, 1004), torch.bfloat16, "contiguous", "general"),
+    ((512, 4096), torch.bfloat16, "offset", "general"),
+    ((64, 16384), torch.bfloat16, "contiguous", "general"),
+]
+
+
+def _norm_input(gen, shape, dtype, how):
+    """x on the card; ``offset`` makes it a contiguous view one element
+    past a 16-byte boundary."""
+    if how == "offset":
+        n = int(np.prod(shape))
+        return randn(gen, (n + 1,), dtype)[1:].view(shape)
+    return randn(gen, shape, dtype)
+
+
+def check_norm_plan() -> None:
+    """rmsnorm.rmsnorm_plan's tile against the built kernel's
+    (rmsnorm_tile) for every K6 case's route, d and dtype, and the
+    occupancy the vec route was built for."""
+    seen = set()
+    for shape, dtype, how, route in NORM_CASES:
+        if (route, shape[-1], dtype) in seen:
+            continue
+        seen.add((route, shape[-1], dtype))
+        d = shape[-1]
+        buf = torch.empty(2 * d + 1, dtype=dtype, device="cuda")
+        x = (buf[1:] if how == "offset" else buf[:2 * d]).view(2, d)
+        plan = rn.rmsnorm_plan(x)
+        want = {key: plan[key] for key in rn.TILE_KEYS}
+        built = rn.built_tile(route, d, dtype)
+        resident = built.pop("resident_ctas_per_sm")
+        log("build", rmsnorm_tile=f"{route} d={d} {str(dtype)[6:]}",
+            **built, resident_ctas_per_sm=resident,
+            rmsnorm_plan_agrees=built == want and plan["route"] == route)
+        check(plan["route"] == route and built == want,
+              f"rmsnorm_plan {plan} != the built kernel's {built} on "
+              f"{route} at d={d} {dtype}")
+        check(route == "general" or resident >= rn.VEC_CTAS_PER_SM,
+              f"rmsnorm_vec at d={d} {dtype}: {resident} CTAs resident "
+              f"per SM, the grid assumes {rn.VEC_CTAS_PER_SM}")
+
+
+def phase_norm_kernels() -> tuple[float, dict]:
+    """K6 against its plain twin on every NORM_CASES case, each launch
+    counted on the route its plan names.  Returns the max |err| and the
+    launches by route."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = 0.0
-    for shape, dtype in (((2, 128, 512), torch.float32),
-                         ((2, 64, 1024), torch.bfloat16),
-                         ((3, 100), torch.float32)):
-        x = randn(gen, shape, dtype)
+    fn = rn.rmsnorm_cuda
+    held = {route: 0 for route in fn.routes}
+    for shape, dtype, how, route in NORM_CASES:
+        x = _norm_input(gen, shape, dtype, how)
         scale = 1.0 + 0.1 * randn(gen, (shape[-1],), torch.float32)
+        plan = rn.rmsnorm_plan(x)
+        before = fn.by_route()
         got = rn.rmsnorm(x, scale, block_rows=1)
         torch.cuda.synchronize()
+        ran = {r: n - before[r] for r, n in fn.by_route().items()}
         want = rn.rmsnorm_plain(x, scale)
         atol, rtol = NORM_TOL[dtype]
         ok, err = _close(got, want, atol, rtol)
         ok = ok and got.dtype == dtype and got.shape == x.shape
         log("kernels", case=f"rmsnorm_{'x'.join(map(str, shape))}",
-            dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
-            rtol=rtol, ok=ok)
-        check(ok, f"rmsnorm disagrees with its plain twin on {shape}")
+            dtype=str(dtype).split(".")[-1], layout=how,
+            route=plan["route"], threads_per_row=plan["threads_per_row"],
+            rows_per_cta=plan["rows_per_cta"], launches=json.dumps(ran),
+            max_abs_err=err, atol=atol, rtol=rtol, ok=ok,
+            **({"why": plan["why"]} if "why" in plan else {}))
+        check(ok, f"rmsnorm disagrees with its plain twin on {shape} "
+                  f"{dtype} {how}")
+        check(plan["route"] == route and ran == {
+            r: int(r == route) for r in ran},
+            f"rmsnorm {shape} {dtype} {how}: route {plan['route']}, "
+            f"launches {ran}, want one on {route}")
+        held[route] += 1
         worst = max(worst, err)
-    return worst
+    return worst, held
+
+
+# ------------------------------------------------------------------- trace --
+
+def phase_trace() -> dict:
+    """The trace layer on the host: build every rvv program at its
+    paper_params and expand it into the engine's event matrices, printing
+    the sizes the engine kernel takes (instructions T, active vector
+    registers, the matrices' bytes as int32); T must equal TRACE_T.  Then,
+    at reduced_params, the full-VRF interpreter against the dispersed one
+    (FIFO, TRACE_CHECK_CAPACITY registers): memory and registers bitwise
+    equal, and the outputs within the kernel's tolerance of its
+    reference."""
+    check(list(rvv.BENCHMARKS) == list(TRACE_T),
+          f"rvv registry order {list(rvv.BENCHMARKS)}")
+    t_phase = time.perf_counter()
+    sizes = {}
+    for name, bench in rvv.BENCHMARKS.items():
+        t0 = time.perf_counter()
+        prog = bench.build(**bench.paper_params).program
+        t1 = time.perf_counter()
+        ev = events.expand(prog)
+        t2 = time.perf_counter()
+        nbytes = sum(4 * a.size for a in vars(ev).values()
+                     if isinstance(a, np.ndarray))
+        sizes[name] = dict(T=prog.num_instructions,
+                           active_vregs=len(prog.active_vregs()),
+                           event_bytes_int32=nbytes)
+        log("trace", program=name, params=json.dumps(bench.paper_params),
+            **sizes[name], want_T=TRACE_T[name], events=ev.num_events,
+            build_s=round(t1 - t0, 3), expand_s=round(t2 - t1, 3))
+        check(prog.num_instructions == TRACE_T[name],
+              f"{name}: T = {prog.num_instructions}, want {TRACE_T[name]}")
+        del prog, ev
+
+        small = bench.build(**bench.reduced_params)
+        full = interpreter.run(small.program)
+        disp = interpreter.run_dispersed(small.program, TRACE_CHECK_CAPACITY,
+                                         policies.FIFO)
+        same = (np.array_equal(full.memory.view(np.int32),
+                               disp.memory.view(np.int32))
+                and np.array_equal(full.vregs.view(np.int32),
+                                   disp.vregs.view(np.int32)))
+        rvv.check(small, full.memory)          # raises if off
+        log("trace", program=name, check="run_vs_run_dispersed",
+            T=small.program.num_instructions, capacity=TRACE_CHECK_CAPACITY,
+            policy="fifo", hits=disp.vrf_hits, misses=disp.vrf_misses,
+            spills=disp.spills, fills=disp.fills, equal=same)
+        check(same, f"{name}: run and run_dispersed differ")
+    seconds = time.perf_counter() - t_phase
+    log("trace", programs=len(sizes), seconds=round(seconds, 2),
+        largest=max(sizes, key=lambda n: sizes[n]["T"]))
+    return sizes
 
 
 # ----------------------------------------------------------------- prefill --
@@ -542,8 +694,12 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
+    """Each kernel's launches, and K6's by route (``rmsnorm_<route>``)."""
     torch.cuda.synchronize()
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    out = {name: fn.launches for name, fn in COUNTED.items()}
+    out.update({f"rmsnorm_{route}": n
+                for route, n in rn.rmsnorm_cuda.by_route().items()})
+    return out
 
 
 def phase_roofline() -> dict:
@@ -600,8 +756,9 @@ def phase_roofline() -> dict:
 
 def host_vs_device(calls: int = 20) -> None:
     """Where a roofline point's time goes, at the 512x512x256 f32 points
-    W=0 (K4, 4 launches a call) and W=4 (K3) and at the attention point
-    in bf16 (tensor-core route) and f32 (CUDA-core route): us per call
+    W=0 (K4, 4 launches a call) and W=4 (K3), at the attention point in
+    bf16 (tensor-core route) and f32 (CUDA-core route), and for K6 and
+    F.rms_norm at (NORM_ROWS, NORM_D) and (2048, 3072) bf16: us per call
     timed by CUDA events around one call from an idle stream (host work
     inside the window), around ``calls`` back-to-back calls (the
     roofline's timing: the device's time unless the host is slower),
@@ -626,6 +783,18 @@ def host_vs_device(calls: int = 20) -> None:
                      route=fa.flash_plan(*qkv[dtype])["route"]),
                 lambda t=qkv[dtype]: ops.flash_attention(*t, **fb))
                for dtype in qkv]
+    # K6 and F.rms_norm at the kernel table's shape and the prefill's
+    for rows, d in ((NORM_ROWS, NORM_D), (2048, 3072)):
+        x = randn(gen, (rows, d), torch.bfloat16)
+        scale = (1.0 + 0.1 * randn(gen, (d,), torch.float32)).to(x.dtype)
+        shape = f"{rows}x{d}_bf16"
+        points += [
+            (dict(host_vs_device=f"rmsnorm_{shape}",
+                  route=rn.rmsnorm_plan(x)["route"]),
+             lambda x=x, s=scale.float(): rn.rmsnorm(x, s)),
+            (dict(host_vs_device=f"rms_norm_{shape}"),
+             lambda x=x, s=scale, d=d: torch.nn.functional.rms_norm(
+                 x, (d,), weight=s, eps=1e-6))]
     for label, fn in points:
         fn()
         torch.cuda.synchronize()
@@ -854,32 +1023,66 @@ def phase_gemm_timing() -> dict:
     return out
 
 
+def _norm_bound(x) -> tuple[float, str]:
+    """K6's least time on x: x read and y written once (plus the f32
+    scale) over HBM, or 4 flops an element over the f32 peak."""
+    return bound_ms(2 * x.numel() * x.element_size() + x.shape[-1] * 4,
+                    4.0 * x.numel(), torch.float32)
+
+
 def phase_norm_timing() -> dict:
-    """K6 on (NORM_ROWS, NORM_D) bf16 beside its bound, plain twin and
-    F.rms_norm (given the same scale, exactly representable in bf16)."""
+    """K6 beside its bound, plain twin and F.rms_norm (given the same
+    scale, in bf16 exactly representable): at (NORM_ROWS, NORM_D) bf16,
+    where the kernels line reports it, and at the prefill's norm shape
+    (2048, 3072) bf16 and at (NORM_ROWS, NORM_D) f32.  The card's clocks
+    drift under load, so K6 and F.rms_norm are timed in NORM_ROUNDS
+    rounds, the order reversed every other round, and each time is the
+    median of its rounds."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    x = randn(gen, (NORM_ROWS, NORM_D), torch.bfloat16)
-    scale = (1.0 + 0.1 * randn(gen, (NORM_D,), torch.float32)).to(
-        torch.bfloat16)
-    scale32 = scale.float()
-    atol, rtol = NORM_TOL[torch.bfloat16]
-    ok, err = _close(rn.rmsnorm(x, scale32), rn.rmsnorm_plain(x, scale32),
-                     atol, rtol)
-    check(ok, f"rmsnorm vs plain twin at ({NORM_ROWS}, {NORM_D}): {err}")
-    before = rn.rmsnorm_cuda.launches
-    ms = cuda_ms(lambda: rn.rmsnorm(x, scale32))
-    per_call = (rn.rmsnorm_cuda.launches - before) / 23
-    plain_ms = cuda_ms(lambda: rn.rmsnorm_plain(x, scale32))
-    lib_ms = cuda_ms(lambda: torch.nn.functional.rms_norm(
-        x, (NORM_D,), weight=scale, eps=1e-6))
-    bms, bound_by = bound_ms(2 * x.numel() * 2 + NORM_D * 4,
-                             4.0 * x.numel(), torch.float32)
-    log("timing", kernel="rmsnorm", shape=[NORM_ROWS, NORM_D],
-        dtype="bfloat16", ms=ms, launches_per_call=per_call,
-        plain_ms=plain_ms, rms_norm_ms=lib_ms, bound_ms=bms,
-        bound_by=bound_by, max_abs_err=err, share_of_bound=bms / ms)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=bound_by, max_abs_err=err)
+    fn = rn.rmsnorm_cuda
+    out = {}
+    for rows, d, dtype in ((NORM_ROWS, NORM_D, torch.bfloat16),
+                           (2048, 3072, torch.bfloat16),
+                           (NORM_ROWS, NORM_D, torch.float32)):
+        x = randn(gen, (rows, d), dtype)
+        scale = (1.0 + 0.1 * randn(gen, (d,), torch.float32)).to(dtype)
+        scale32 = scale.float()
+        atol, rtol = NORM_TOL[dtype]
+        ok, err = _close(rn.rmsnorm(x, scale32),
+                         rn.rmsnorm_plain(x, scale32), atol, rtol)
+        check(ok, f"rmsnorm vs plain twin at ({rows}, {d}) {dtype}: {err}")
+        fns = {"rmsnorm": lambda: rn.rmsnorm(x, scale32),
+               "rms_norm": lambda: torch.nn.functional.rms_norm(
+                   x, (d,), weight=scale, eps=1e-6)}
+        samples = {name: [] for name in fns}
+        before = fn.by_route()
+        for r in range(NORM_ROUNDS):
+            for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                samples[name].append(cuda_ms(fns[name], iters=NORM_ITERS))
+        calls = NORM_ROUNDS * (3 + NORM_ITERS)
+        per_call = {r: (n - before[r]) / calls
+                    for r, n in fn.by_route().items()}
+        route = rn.rmsnorm_plan(x)["route"]
+        check(per_call[route] == 1 and sum(per_call.values()) == 1,
+              f"rmsnorm at ({rows}, {d}) {dtype}: launches per call by "
+              f"route {per_call}, want one on {route}")
+        ms = statistics.median(samples["rmsnorm"])
+        lib_ms = statistics.median(samples["rms_norm"])
+        plain_ms = cuda_ms(lambda: rn.rmsnorm_plain(x, scale32))
+        bms, bound_by = _norm_bound(x)
+        dt = str(dtype).split(".")[-1]
+        log("timing", kernel="rmsnorm", shape=[rows, d], dtype=dt,
+            route=route, ms=ms, samples_ms=samples["rmsnorm"],
+            launches_per_call=json.dumps(per_call), plain_ms=plain_ms,
+            rms_norm_ms=lib_ms, rms_norm_samples_ms=samples["rms_norm"],
+            vs_rms_norm=ms / lib_ms, bound_ms=bms, bound_by=bound_by,
+            max_abs_err=err, share_of_bound=bms / ms)
+        out[f"{rows}x{d}_{dt}"] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib_ms, bound_ms=bms,
+                                       bound_by=bound_by, max_abs_err=err)
+    main = out.pop(f"{NORM_ROWS}x{NORM_D}_bfloat16")
+    main["other_shapes"] = out
+    return main
 
 
 def main() -> int:
@@ -908,12 +1111,16 @@ def main() -> int:
         time.perf_counter() - t0, 2))
     for entry in ptxas_summary(logs["flash_attention"], "flash_tc"):
         log("build", **entry)
+    for entry in ptxas_summary(logs["rmsnorm"], "rmsnorm_vec"):
+        log("build", **entry)
     check_tc_plan()
     check_flash_plan()
+    check_norm_plan()
 
     flash_err = phase_kernels()
     gemm_errs = phase_gemm_kernels()
-    norm_err = phase_norm_kernels()
+    norm_err, norm_held = phase_norm_kernels()
+    phase_trace()
 
     cfg = get(ARCH)
     model = Model(cfg, device="cuda")
@@ -960,6 +1167,8 @@ def main() -> int:
                 ("ms", "bound_ms", "schedule_bound_ms", "launches_per_call")}
     norm_entry = dict(norm)
     norm_entry["max_abs_err"] = max(norm_entry["max_abs_err"], norm_err)
+    norm_routes = {route: sum(n[f"rmsnorm_{route}"] for n in paths.values())
+                   for route in rn.rmsnorm_cuda.routes}
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -975,11 +1184,13 @@ def main() -> int:
         gemm_entry("matmul_dispersed",
                    "src/repro/kernels/dispersed_gemm.py:164"),
         # K6 is on no path of the reference (only its test calls it), so
-        # no path launches it; it is held and timed above.
+        # no path launches it; it is held (held_launches_by_route: the
+        # kernel checks' launches) and timed above.
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:27",
-             **launches("rmsnorm"), shape=[NORM_ROWS, NORM_D],
+             **launches("rmsnorm"), launches_by_route=norm_routes,
+             held_launches_by_route=norm_held, shape=[NORM_ROWS, NORM_D],
              dtype="bfloat16", **norm_entry),
     ]
     print(json.dumps({"kernels": kernels}))
