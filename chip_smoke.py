@@ -23,11 +23,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
                persistent grid; a bf16 d no multiple of 8, an unaligned
                view and a d above the register limit on general; each
                launch counted on the route its plan names);
-  3. trace     on the host: every rvv program built at its paper size
+  3. engine    K1, the engine scan, against its plain twin (on the
+               host's CPU) at reduced size, bitwise on all three counter
+               sets: every rvv program unfolded and folded on the
+               reference's conformance points and M = 6 machine grid, and
+               lanes on the decision edges (capacities 1, 2, 32, every
+               policy);
+     trace     on the host: every rvv program built at its paper size
                and expanded into the engine's event matrices (T, active
                registers, bytes), T held to TRACE_T; at reduced size the
                full-VRF interpreter against the dispersed one (FIFO,
                capacity 8), bitwise;
+     engine    the main path at paper size on the card: simulate_grid
+               (K1) folded as the reference's Session folds (re-running
+               unfolded what its rule re-runs), held exactly to
+               BENCH_core.json's table3 cycles and pareto keys; table3
+               unfolded beside it; K1's device time (folded table3 grid,
+               unfolded resnet50_l10) beside the host's prepare and
+               _stack seconds and its bytes bound;
   4. prefill   full-width phi3-mini-3.8b (random weights from a seeded
                generator): Model.prefill on 4 x 512 tokens with the flash
                kernel vs the plain sdpa path, counting kernel launches (all
@@ -80,8 +93,10 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.benchmarks import roofline, vmem_dispersion  # noqa: E402
 from repro_torch import rvv  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
-from repro_torch.core import events, interpreter, policies  # noqa: E402
+from repro_torch.core import (events, interpreter, isa, policies,  # noqa: E402
+                              simulator)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import engine_scan as es  # noqa: E402
 from repro_torch.kernels import dispersed_gemm as dg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
@@ -486,6 +501,20 @@ def check_norm_plan() -> None:
               f"per SM, the grid assumes {rn.VEC_CTAS_PER_SM}")
 
 
+def check_engine_plan() -> None:
+    """engine_scan.engine_scan_plan's tile against the built kernel's
+    (engine_scan_tile) at both L1 geometries the main path runs."""
+    for kb in PARETO_L1_KB:
+        m = _l1_machine(kb)
+        plan = es.engine_scan_plan(m.l1_sets, m.l1_ways)
+        built = es.built_tile(m.l1_sets, m.l1_ways)
+        want = {key: plan[key] for key in es.TILE_KEYS}
+        log("build", engine_scan_tile=f"{m.l1_sets}x{m.l1_ways}", **built,
+            engine_scan_plan_agrees=built == want)
+        check(built == want, f"engine_scan_plan {plan} != the built "
+              f"kernel's {built} at {m.l1_sets} x {m.l1_ways}")
+
+
 def phase_norm_kernels() -> tuple[float, dict]:
     """K6 against its plain twin on every NORM_CASES case, each launch
     counted on the route its plan names.  Returns the max |err| and the
@@ -533,14 +562,15 @@ def phase_trace() -> dict:
     at reduced_params, the full-VRF interpreter against the dispersed one
     (FIFO, TRACE_CHECK_CAPACITY registers): memory and registers bitwise
     equal, and the outputs within the kernel's tolerance of its
-    reference."""
+    reference.  Returns the paper-size programs by name (the engine
+    phase runs them)."""
     check(list(rvv.BENCHMARKS) == list(TRACE_T),
           f"rvv registry order {list(rvv.BENCHMARKS)}")
     t_phase = time.perf_counter()
-    sizes = {}
+    sizes, programs = {}, {}
     for name, bench in rvv.BENCHMARKS.items():
         t0 = time.perf_counter()
-        prog = bench.build(**bench.paper_params).program
+        prog = programs[name] = bench.build(**bench.paper_params).program
         t1 = time.perf_counter()
         ev = events.expand(prog)
         t2 = time.perf_counter()
@@ -554,7 +584,7 @@ def phase_trace() -> dict:
             build_s=round(t1 - t0, 3), expand_s=round(t2 - t1, 3))
         check(prog.num_instructions == TRACE_T[name],
               f"{name}: T = {prog.num_instructions}, want {TRACE_T[name]}")
-        del prog, ev
+        del ev
 
         small = bench.build(**bench.reduced_params)
         full = interpreter.run(small.program)
@@ -573,7 +603,292 @@ def phase_trace() -> dict:
     seconds = time.perf_counter() - t_phase
     log("trace", programs=len(sizes), seconds=round(seconds, 2),
         largest=max(sizes, key=lambda n: sizes[n]["T"]))
-    return sizes
+    return programs
+
+
+# ------------------------------------------------------------------ engine --
+
+# K1 is held bitwise to its plain twin (run on the host's CPU) at reduced
+# size on the reference's conformance points (tests/test_golden_counters.py
+# CONF_POINTS) and its M = 6 machine grid (tests/test_machine_grid.py),
+# every program in one batch, unfolded and folded.
+CONF_POINTS = (
+    (3, policies.FIFO, simulator.MachineParams(mem_latency=1)),
+    (4, policies.LRU, simulator.MachineParams(mem_latency=10,
+                                              uop_hit_cycles=2)),
+    (8, policies.OPT, simulator.MachineParams(mem_latency=5,
+                                              l1_hit_cycles=1)),
+)
+M6 = simulator.MachineSweep.product((1, 3, 10), uop_hit_cycles=(1, 2))
+# The reduced traces are too short to fold after the 16 KB L1's warm-up
+# (2 x 512 lines), so the folded check plans them with this warm-up
+FOLD_CHECK_WARM_LINES = 16
+# Lanes on the decision edges: capacities 1 and 2 (no slot evictable under
+# the vd check's two locks: the victim is slot 0), the full VRF, every
+# policy, with and without alloc_no_fetch, on the smallest programs
+HAZARD_SWEEP = simulator.SweepConfig.product(
+    (1, 2, 32), (policies.FIFO, policies.LRU, policies.LFU, policies.OPT),
+    (False, True))
+HAZARD_PROGRAMS = ("pathfinder", "gemv", "densenet121_l105")
+# BENCH_core.json's suites all ran folded through the reference's
+# api.Session, which re-runs a program unfolded when its fold certificate
+# failed at some point of its grid and it has at most REFINE_MAX_ROWS
+# instructions (src/repro/api.py REFINE_MAX_ROWS and Session._refine)
+REFINE_MAX_ROWS = 400_000
+# The pareto suite's grid (benchmarks/pareto_frontier.py): capacities x L1
+# sizes in KB, 2 ways of 32-byte lines, FIFO, the default latencies
+PARETO_CAPS = (3, 4, 5, 6, 8, 10, 12, 16, 32)
+PARETO_L1_KB = (4, 16)
+ENGINE_ITERS = 3
+# K1 is also held to its twin on the paper-size main path's inputs, each
+# trace cut to this many rows
+ENGINE_CHECK_ROWS = 2048
+# K1's operations bound counts, per lane: 3 ops (tag compare, free test,
+# victim metric) on each of the 32 slots for a REG access to a cVRF, and 2
+# (tag and age compare) on each way for a MEM access
+ENGINE_OPS_PER_REG = 3 * 32
+ENGINE_OPS_PER_WAY = 2
+
+
+def _l1_machine(kbytes: int) -> simulator.MachineParams:
+    return simulator.MachineParams(l1_sets=kbytes * 1024 // 32 // 2,
+                                   l1_ways=2)
+
+
+def _engine_inputs(preps, sweep, machines):
+    """The packed (P, T, NCOL) rows and the other inputs of one engine
+    call over ``preps``, as simulate_grid gives them to K1."""
+    lengths = [p.num_rows for p in preps]
+    arrays, spill0s, _ = simulator._stack(preps, pad_to=max(lengths))
+    cfg = (sweep.capacity, sweep.policy, sweep.alloc_no_fetch)
+    mach = (machines.l1_hit_cycles, machines.uop_hit_cycles,
+            machines.mem_latency)
+    kw = dict(l1_sets=machines.l1_sets, l1_ways=machines.l1_ways,
+              track_ab=True, lengths=lengths)
+    return es.pack(arrays), spill0s, cfg, mach, kw
+
+
+def engine_bound_ms(x, cfg, kw, machines: int) -> tuple[float, str]:
+    """Least time for K1's work on the packed rows x: the larger of its
+    bytes over HBM (x read once, whatever the number of lanes reading it,
+    and its three (lanes, 12) int32 outputs written once) and its integer
+    operations over the CUDA cores' peak (PEAK_FLOPS[torch.float32]; the
+    card's int32 rate is no higher).  The operations are counted from the
+    data and leave out what depends on the outcome (spills, fills,
+    victims), so they are a lower bound: per lane, ENGINE_OPS_PER_REG for
+    each active REG access where the lane's cVRF has fewer than 32 slots,
+    ENGINE_OPS_PER_WAY for each way of each active MEM access, and a
+    multiply and an add per counter, counter set and row walked."""
+    capacity = np.asarray(cfg[0])
+    lanes = x.shape[0] * len(capacity) * machines
+    nbytes = x.numel() * x.element_size() + 3 * lanes * 12 * 4
+    rows = torch.as_tensor(kw["lengths"], device=x.device)
+    walked = torch.arange(x.shape[1], device=x.device)[None] < rows[:, None]
+    reg = int(((x[..., es.RV:es.RV + 3] != 0).sum(-1) * walked).sum())
+    mem = int(((x[..., es.MV:es.MV + 2] != 0).sum(-1) * walked).sum())
+    sets = 3 if kw["track_ab"] else 1
+    ops = machines * (
+        int((capacity < isa.NUM_ARCH_VREGS).sum()) * ENGINE_OPS_PER_REG * reg
+        + len(capacity) * (ENGINE_OPS_PER_WAY * kw["l1_ways"] * mem
+                           + 2 * 12 * sets * int(rows.sum())))
+    return bound_ms(nbytes, ops, torch.float32)
+
+
+def check_engine_twin(label, preps, sweep, machines, depth=None) -> dict:
+    """K1 against the plain twin on the same inputs: total, period A and
+    period B counters, all 12, bitwise; K1's device time (CUDA events)
+    and the twin's host time on those inputs.  ``depth`` cuts each trace
+    to its first rows (the twin walks about a thousand rows a second)."""
+    if depth is not None:
+        preps = [simulator._slice_prep(p, min(p.num_rows, depth))
+                 for p in preps]
+    x_cpu, spill0s, cfg, mach, kw = _engine_inputs(preps, sweep, machines)
+    t0 = time.perf_counter()
+    want = es.engine_scan_plain(x_cpu, spill0s, cfg, mach, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    x = x_cpu.cuda()
+    got = es.engine_scan_cuda(x, spill0s, cfg, mach, **kw)
+    torch.cuda.synchronize()
+    lanes = len(preps) * len(sweep) * len(machines)
+    for g, w, name in zip(got, want, ("ctr", "ctr_a", "ctr_b")):
+        diff = (g.cpu().long() - w.long()).abs()
+        check(int(diff.max()) == 0,
+              f"engine {label}: K1 {name} differs from the twin at "
+              f"{int((diff > 0).sum())} counters")
+    ms = cuda_ms(lambda: es.engine_scan_cuda(x, spill0s, cfg, mach, **kw),
+                 warmup=1, iters=ENGINE_ITERS)
+    out = dict(programs=len(preps), rows=[p.num_rows for p in preps],
+               lanes=lanes, ms=ms, plain_host_ms=plain_ms,
+               **dict(zip(("bound_ms", "bound_by"), engine_bound_ms(
+                   x, cfg, kw, len(machines)))))
+    log("engine", check=label, equal=True, **out)
+    return out
+
+
+def phase_engine_twin() -> dict:
+    """K1 against its twin at reduced size: every rvv program unfolded
+    and folded on CONF_POINTS' configs x (their machines + M6), and the
+    hazard lanes on the smallest programs.  Returns the unfolded check's
+    figures (the kernels line's plain time)."""
+    built = {n: b.build(**b.reduced_params).program
+             for n, b in rvv.BENCHMARKS.items()}
+    sweep = simulator.SweepConfig(
+        np.asarray([c for c, _, _ in CONF_POINTS], np.int32),
+        np.asarray([p for _, p, _ in CONF_POINTS], np.int32),
+        np.zeros(len(CONF_POINTS), bool))
+    machines = simulator.MachineSweep.from_params(
+        [m for _, _, m in CONF_POINTS]
+        + [M6.point(i) for i in range(len(M6))])
+    unfolded = check_engine_twin(
+        "reduced_unfolded", [simulator.prepare(p) for p in built.values()],
+        sweep, machines)
+    folded = [simulator.prepare(p, fold=True,
+                                warm_lines=FOLD_CHECK_WARM_LINES)
+              for p in built.values()]
+    check(sum(p.num_folds > 0 for p in folded) == len(folded) - 1,
+          "engine: the folded check's traces did not fold (all but "
+          "pathfinder's 133 rows should)")
+    check_engine_twin("reduced_folded", folded, sweep, machines)
+    check_engine_twin(
+        "hazards", [simulator.prepare(built[n]) for n in HAZARD_PROGRAMS],
+        HAZARD_SWEEP, simulator.MachineSweep.from_params(
+            [simulator.DEFAULT_MACHINE]))
+    return unfolded
+
+
+def _engine_grid(programs, names, sweep, machine, preps, fold=True):
+    """simulate_grid on the card over the named paper-size programs,
+    folded as the reference's Session folds them, then each program whose
+    certificate failed at some grid point re-run unfolded if it has at
+    most REFINE_MAX_ROWS rows.  ``preps`` caches the prepared traces by
+    (name, fold, L1 geometry) and their host seconds."""
+    def prep(name, fold):
+        key = (name, fold, machine.l1_sets, machine.l1_ways)
+        if key not in preps:
+            t0 = time.perf_counter()
+            preps[key] = (simulator.prepare(programs[name], fold=fold,
+                                            machine=machine),
+                          time.perf_counter() - t0)
+        return preps[key][0]
+
+    out = simulator.simulate_grid([prep(n, fold) for n in names], sweep,
+                                  machine, batch_programs=True,
+                                  device="cuda")
+    refined = []
+    for pi, name in enumerate(names):
+        if ("fold_exact" not in out or out["fold_exact"][pi].all()
+                or programs[name].num_instructions > REFINE_MAX_ROWS):
+            continue
+        sub = simulator.simulate_grid([prep(name, False)], sweep, machine,
+                                      device="cuda")
+        for k in out:
+            out[k][pi] = sub[k][0] if k != "fold_exact" else True
+        refined.append(name)
+    return out, refined
+
+
+def phase_engine(programs) -> dict:
+    """The engine's main path at paper size, through simulate_grid on the
+    card (K1): table3 folded (capacity 32, FIFO, 16 KB/2w) and the pareto
+    grid (PARETO_CAPS x 4 and 16 KB) per the reference's fold/refine rule,
+    held exactly to BENCH_core.json; then table3 unfolded, reported beside
+    the folded cycles (a difference is fault R1 of the reference's fold
+    certificate on a paper kernel, not a failure).  Then, outside the
+    counted run, K1's device time for the folded table3 grid and for
+    unfolded resnet50_l10 beside the host's prepare and _stack seconds."""
+    bench = json.loads((ROOT / "BENCH_core.json").read_text())["kernels"]
+    names = list(rvv.BENCHMARKS)
+    preps = {}
+    t3 = simulator.SweepConfig.make([isa.NUM_ARCH_VREGS])
+    es.engine_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    folded, t3_refined = _engine_grid(programs, names, t3,
+                                      simulator.DEFAULT_MACHINE, preps)
+    pareto = {}
+    for kb in PARETO_L1_KB:
+        pareto[kb] = _engine_grid(
+            programs, names, simulator.SweepConfig.make(PARETO_CAPS),
+            _l1_machine(kb), preps)
+    unfolded = {}
+    for name in names:
+        out, _ = _engine_grid(programs, [name], t3,
+                              simulator.DEFAULT_MACHINE, preps, fold=False)
+        unfolded[name] = int(out["cycles"][0, 0])
+        if name != "resnet50_l10":
+            preps.pop((name, False, 256, 2), None)
+    launches = es.engine_scan_cuda.by_route()
+    main_s = time.perf_counter() - t0
+    log("engine", path="paper", seconds=round(main_s, 2),
+        launches=launches)
+
+    held = 0
+    for pi, name in enumerate(names):
+        got, want = int(folded["cycles"][pi, 0]), bench[name][
+            "table3.vec_cycles"]
+        log("engine", table3=name, T=programs[name].num_instructions,
+            rows_folded=preps[(name, True, 256, 2)][0].num_rows,
+            cycles=got, want=want, refined=name in t3_refined,
+            fold_exact=bool(folded["fold_exact"][pi, 0]),
+            unfolded_cycles=unfolded[name],
+            unfolded_minus_folded=unfolded[name] - got)
+        check(got == want, f"engine table3 {name}: {got} cycles, "
+              f"BENCH_core.json {want}")
+        held += 1
+    for kb, (out, refined) in pareto.items():
+        for pi, name in enumerate(names):
+            for ci, cap in enumerate(PARETO_CAPS):
+                key = f"pareto_cap{cap}_l1{kb}.cycles"
+                if key not in bench[name]:
+                    continue
+                got = int(out["cycles"][pi, ci])
+                check(got == bench[name][key], f"engine {name} {key}: "
+                      f"{got}, BENCH_core.json {bench[name][key]}")
+                held += 1
+        log("engine", pareto_l1_kb=kb, refined=refined, equal=True)
+    log("engine", held_to_bench=held, equal=True)
+
+    # Outside the counted run: K1 against its twin on the main path's own
+    # inputs (its lanes, L1 geometries and folded rows), cut in depth.
+    for label, kb, sweep in (("table3_folded", 16, t3),
+                             ("pareto_4kb", 4, simulator.SweepConfig.make(
+                                 PARETO_CAPS))):
+        m = _l1_machine(kb)
+        check_engine_twin(
+            f"{label}_first_{ENGINE_CHECK_ROWS}_rows",
+            [preps[(n, True, m.l1_sets, m.l1_ways)][0] for n in names],
+            sweep, simulator.MachineSweep.from_params([m]),
+            depth=ENGINE_CHECK_ROWS)
+
+    # Timing, outside the counted run.
+    timing = {}
+    for label, keys in (
+            ("table3_folded", [(n, True, 256, 2) for n in names]),
+            ("resnet50_l10_unfolded", [("resnet50_l10", False, 256, 2)])):
+        group = [preps[k][0] for k in keys]
+        t0 = time.perf_counter()
+        x_cpu, spill0s, cfg, mach, kw = _engine_inputs(
+            group, t3, simulator.MachineSweep.from_params(
+                [simulator.DEFAULT_MACHINE]))
+        stack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x = x_cpu.cuda()
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        ms = cuda_ms(lambda: es.engine_scan_cuda(x, spill0s, cfg, mach,
+                                                 **kw),
+                     warmup=1, iters=ENGINE_ITERS)
+        rows = [p.num_rows for p in group]
+        timing[label] = dict(
+            programs=len(group), rows=sum(rows), longest=max(rows), ms=ms,
+            ns_per_row_longest_lane=ms * 1e6 / max(rows),
+            **dict(zip(("bound_ms", "bound_by"), engine_bound_ms(
+                x, cfg, kw, 1))),
+            prepare_s=sum(preps[k][1] for k in keys), stack_pack_s=stack_s,
+            host_to_device_s=copy_s)
+        log("engine", timing=label, **timing[label])
+        del x, x_cpu
+    return dict(launches=launches, held=held, timing=timing,
+                main_path_s=main_s)
 
 
 # ----------------------------------------------------------------- prefill --
@@ -1113,14 +1428,20 @@ def main() -> int:
         log("build", **entry)
     for entry in ptxas_summary(logs["rmsnorm"], "rmsnorm_vec"):
         log("build", **entry)
+    for entry in ptxas_summary(logs["engine_scan"], "engine_scan"):
+        log("build", **entry)
     check_tc_plan()
     check_flash_plan()
     check_norm_plan()
+    check_engine_plan()
 
     flash_err = phase_kernels()
     gemm_errs = phase_gemm_kernels()
     norm_err, norm_held = phase_norm_kernels()
-    phase_trace()
+    engine_twin = phase_engine_twin()
+    programs = phase_trace()
+    engine = phase_engine(programs)
+    del programs
 
     cfg = get(ARCH)
     model = Model(cfg, device="cuda")
@@ -1192,6 +1513,31 @@ def main() -> int:
              **launches("rmsnorm"), launches_by_route=norm_routes,
              held_launches_by_route=norm_held, shape=[NORM_ROWS, NORM_D],
              dtype="bfloat16", **norm_entry),
+        # K1 at the main path's largest call, unfolded resnet50_l10 at
+        # paper size (one lane, capacity 32); its twin cannot walk 9.7 M
+        # rows, so plain_ms is the twin on the host's CPU at the reduced
+        # check's inputs, where K1's own time is ms_at_plain_inputs.
+        dict(name="engine_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/engine_scan.cu",
+             replaces="src/repro/core/simulator.py:386",
+             launches=sum(engine["launches"].values()),
+             launches_by_path={"engine": sum(engine["launches"].values())},
+             launches_by_route=engine["launches"], max_abs_err=0,
+             shape=[1, engine["timing"]["resnet50_l10_unfolded"]["rows"],
+                    es.NCOL], dtype="int32",
+             ms=engine["timing"]["resnet50_l10_unfolded"]["ms"],
+             bound_ms=engine["timing"]["resnet50_l10_unfolded"][
+                 "bound_ms"],
+             bound_by=engine["timing"]["resnet50_l10_unfolded"]["bound_by"],
+             plain_ms=engine_twin["plain_host_ms"], plain_device="cpu",
+             plain_inputs=dict(programs=engine_twin["programs"],
+                               rows=max(engine_twin["rows"]),
+                               lanes=engine_twin["lanes"]),
+             ms_at_plain_inputs=engine_twin["ms"],
+             bound_ms_at_plain_inputs=engine_twin["bound_ms"],
+             bound_by_at_plain_inputs=engine_twin["bound_by"],
+             library_ms=None, held_to_bench=engine["held"],
+             timing=engine["timing"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
