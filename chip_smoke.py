@@ -657,21 +657,23 @@ def _l1_machine(kbytes: int) -> simulator.MachineParams:
 
 def _engine_inputs(preps, sweep, machines):
     """The packed (P, T, NCOL) rows and the other inputs of one engine
-    call over ``preps``, as simulate_grid gives them to K1."""
+    call over ``preps``, as simulate_grid gives them to K1 (the A/B period
+    counters only when a trace is folded)."""
     lengths = [p.num_rows for p in preps]
-    arrays, spill0s, _ = simulator._stack(preps, pad_to=max(lengths))
+    arrays, spill0s = simulator._stack(preps)
     cfg = (sweep.capacity, sweep.policy, sweep.alloc_no_fetch)
     mach = (machines.l1_hit_cycles, machines.uop_hit_cycles,
             machines.mem_latency)
     kw = dict(l1_sets=machines.l1_sets, l1_ways=machines.l1_ways,
-              track_ab=True, lengths=lengths)
+              track_ab=any(p.num_folds for p in preps), lengths=lengths)
     return es.pack(arrays), spill0s, cfg, mach, kw
 
 
 def engine_bound_ms(x, cfg, kw, machines: int) -> tuple[float, str]:
     """Least time for K1's work on the packed rows x: the larger of its
-    bytes over HBM (x read once, whatever the number of lanes reading it,
-    and its three (lanes, 12) int32 outputs written once) and its integer
+    bytes over HBM (the rows each program walks, read once whatever the
+    number of lanes reading them, and the (lanes, 12) int32 counter sets
+    it writes, once each: three with ``track_ab``, else one) and its integer
     operations over the CUDA cores' peak (PEAK_FLOPS[torch.float32]; the
     card's int32 rate is no higher).  The operations are counted from the
     data and leave out what depends on the outcome (spills, fills,
@@ -681,12 +683,13 @@ def engine_bound_ms(x, cfg, kw, machines: int) -> tuple[float, str]:
     multiply and an add per counter, counter set and row walked."""
     capacity = np.asarray(cfg[0])
     lanes = x.shape[0] * len(capacity) * machines
-    nbytes = x.numel() * x.element_size() + 3 * lanes * 12 * 4
     rows = torch.as_tensor(kw["lengths"], device=x.device)
+    sets = 3 if kw["track_ab"] else 1
+    nbytes = (int(rows.sum()) * es.NCOL * x.element_size()
+              + sets * lanes * es.NUM_COUNTERS * 4)
     walked = torch.arange(x.shape[1], device=x.device)[None] < rows[:, None]
     reg = int(((x[..., es.RV:es.RV + 3] != 0).sum(-1) * walked).sum())
     mem = int(((x[..., es.MV:es.MV + 2] != 0).sum(-1) * walked).sum())
-    sets = 3 if kw["track_ab"] else 1
     ops = machines * (
         int((capacity < isa.NUM_ARCH_VREGS).sum()) * ENGINE_OPS_PER_REG * reg
         + len(capacity) * (ENGINE_OPS_PER_WAY * kw["l1_ways"] * mem
@@ -710,15 +713,17 @@ def check_engine_twin(label, preps, sweep, machines, depth=None) -> dict:
     got = es.engine_scan_cuda(x, spill0s, cfg, mach, **kw)
     torch.cuda.synchronize()
     lanes = len(preps) * len(sweep) * len(machines)
+    err = 0
     for g, w, name in zip(got, want, ("ctr", "ctr_a", "ctr_b")):
         diff = (g.cpu().long() - w.long()).abs()
+        err = max(err, int(diff.max()))
         check(int(diff.max()) == 0,
               f"engine {label}: K1 {name} differs from the twin at "
               f"{int((diff > 0).sum())} counters")
     ms = cuda_ms(lambda: es.engine_scan_cuda(x, spill0s, cfg, mach, **kw),
                  warmup=1, iters=ENGINE_ITERS)
     out = dict(programs=len(preps), rows=[p.num_rows for p in preps],
-               lanes=lanes, ms=ms, plain_host_ms=plain_ms,
+               lanes=lanes, max_abs_err=err, ms=ms, plain_host_ms=plain_ms,
                **dict(zip(("bound_ms", "bound_by"), engine_bound_ms(
                    x, cfg, kw, len(machines)))))
     log("engine", check=label, equal=True, **out)
@@ -729,7 +734,8 @@ def phase_engine_twin() -> dict:
     """K1 against its twin at reduced size: every rvv program unfolded
     and folded on CONF_POINTS' configs x (their machines + M6), and the
     hazard lanes on the smallest programs.  Returns the unfolded check's
-    figures (the kernels line's plain time)."""
+    figures (the kernels line's plain time) with the largest |K1 - twin|
+    of the three checks."""
     built = {n: b.build(**b.reduced_params).program
              for n, b in rvv.BENCHMARKS.items()}
     sweep = simulator.SweepConfig(
@@ -748,12 +754,15 @@ def phase_engine_twin() -> dict:
     check(sum(p.num_folds > 0 for p in folded) == len(folded) - 1,
           "engine: the folded check's traces did not fold (all but "
           "pathfinder's 133 rows should)")
-    check_engine_twin("reduced_folded", folded, sweep, machines)
-    check_engine_twin(
-        "hazards", [simulator.prepare(built[n]) for n in HAZARD_PROGRAMS],
-        HAZARD_SWEEP, simulator.MachineSweep.from_params(
-            [simulator.DEFAULT_MACHINE]))
-    return unfolded
+    errs = [unfolded["max_abs_err"],
+            check_engine_twin("reduced_folded", folded, sweep,
+                              machines)["max_abs_err"],
+            check_engine_twin(
+                "hazards",
+                [simulator.prepare(built[n]) for n in HAZARD_PROGRAMS],
+                HAZARD_SWEEP, simulator.MachineSweep.from_params(
+                    [simulator.DEFAULT_MACHINE]))["max_abs_err"]]
+    return dict(unfolded, max_abs_err=max(errs))
 
 
 def _engine_grid(programs, names, sweep, machine, preps, fold=True):
@@ -849,15 +858,16 @@ def phase_engine(programs) -> dict:
 
     # Outside the counted run: K1 against its twin on the main path's own
     # inputs (its lanes, L1 geometries and folded rows), cut in depth.
+    errs = []
     for label, kb, sweep in (("table3_folded", 16, t3),
                              ("pareto_4kb", 4, simulator.SweepConfig.make(
                                  PARETO_CAPS))):
         m = _l1_machine(kb)
-        check_engine_twin(
+        errs.append(check_engine_twin(
             f"{label}_first_{ENGINE_CHECK_ROWS}_rows",
             [preps[(n, True, m.l1_sets, m.l1_ways)][0] for n in names],
             sweep, simulator.MachineSweep.from_params([m]),
-            depth=ENGINE_CHECK_ROWS)
+            depth=ENGINE_CHECK_ROWS)["max_abs_err"])
 
     # Timing, outside the counted run.
     timing = {}
@@ -888,7 +898,7 @@ def phase_engine(programs) -> dict:
         log("engine", timing=label, **timing[label])
         del x, x_cpu
     return dict(launches=launches, held=held, timing=timing,
-                main_path_s=main_s)
+                main_path_s=main_s, max_abs_err=max(errs))
 
 
 # ----------------------------------------------------------------- prefill --
@@ -1522,7 +1532,9 @@ def main() -> int:
              replaces="src/repro/core/simulator.py:386",
              launches=sum(engine["launches"].values()),
              launches_by_path={"engine": sum(engine["launches"].values())},
-             launches_by_route=engine["launches"], max_abs_err=0,
+             launches_by_route=engine["launches"],
+             max_abs_err=max(engine_twin["max_abs_err"],
+                             engine["max_abs_err"]),
              shape=[1, engine["timing"]["resnet50_l10_unfolded"]["rows"],
                     es.NCOL], dtype="int32",
              ms=engine["timing"]["resnet50_l10_unfolded"]["ms"],

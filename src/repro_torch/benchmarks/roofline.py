@@ -42,9 +42,9 @@ import torch
 
 from repro_torch import api
 from repro_torch.benchmarks import common
+from repro_torch.device import resolve_device
 from repro_torch.kernels import dispersed_gemm, flash_attention, traffic
 from repro_torch.kernels.ref import cast_like
-from repro_torch.models.common import resolve_device
 
 # (m, k, n) GEMM cases and (b, h, s, d) attention cases, as in the
 # reference.

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.benchmarks import common
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import resolve_device
 
 
 def run(device="cuda") -> list[dict]:

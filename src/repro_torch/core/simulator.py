@@ -34,7 +34,7 @@ from repro_torch.core import events as ev_mod
 from repro_torch.core import folding, isa, policies
 from repro_torch.core.events import NO_NEXT_USE, EventStream
 from repro_torch.kernels import engine_scan as k1
-from repro_torch.models.common import resolve_device
+from repro_torch.device import resolve_device
 
 # ---------------------------------------------------------------------------
 # Machine parameters (Table 1): L1 geometry + per-lane latency axes.
@@ -263,18 +263,12 @@ def prepare(program_or_events, fold: bool = False,
     return prep
 
 
-def _bucket(t: int) -> int:
-    """Round the grid length up to a power of two (the reference's XLA
-    shape buckets; the port pads only to the longest trace, see
-    :func:`simulate_grid`)."""
-    b = 1024
-    while b < t:
-        b *= 2
-    return b
-
-
 def _stack(preps: list[PreparedTrace], pad_to: int | None = None):
-    t_pad = pad_to or _bucket(max(p.num_rows for p in preps))
+    """The engine's 15 event arrays, (P, T) or (P, T, k) each, and the P
+    spill lines.  Traces are padded to ``pad_to`` rows, by default to the
+    longest (the reference's power-of-two buckets serve XLA's compiled
+    shapes, which the port has not)."""
+    t_pad = pad_to or max(max(p.num_rows for p in preps), 1)
 
     def pad(get, fill, dtype=None):
         outs = []
@@ -308,21 +302,17 @@ def _stack(preps: list[PreparedTrace], pad_to: int | None = None):
         pad(lambda p: p.wb, 0),
     )
     spill0s = np.asarray([p.spill_line0 for p in preps], np.int32)
-    slots_used = tuple(
-        bool(arrays[0][:, :, s].any()) for s in range(3)
-    ) + tuple(bool(arrays[7][:, :, m].any()) for m in range(2))
-    return arrays, spill0s, slots_used
+    return arrays, spill0s
 
 
 def _run_grid(preps, machine: MachineSweep, cfg, mach, track_ab: bool,
               device):
     """One engine call (K1 on the card, the twin on the CPU) over P
     prepared traces -> (ctr, ctr_a, ctr_b), (P, C, M, 12) int32 numpy.
-    Traces are padded to the longest, not to a power-of-two bucket (there
-    is no compiled shape to reuse), and each lane walks only its own
+    Traces are padded to the longest, and each lane walks only its own
     program's rows: the padding rows change no state and no counter."""
     lengths = [p.num_rows for p in preps]
-    arrays, spill0s, _ = _stack(preps, pad_to=max(max(lengths), 1))
+    arrays, spill0s = _stack(preps)
     x = k1.pack(arrays, device)
     out = k1.engine_scan(
         x, torch.as_tensor(spill0s, device=device),

@@ -1,4 +1,4 @@
-"""Shared model components: devices, norms, initializers and RoPE.
+"""Shared model components: norms, initializers and RoPE.
 
 The reference's sharding helpers (``shard``, the mesh context and the
 decode layout) have no counterpart here: the port runs on one card.
@@ -11,19 +11,9 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point was asked for.  CUDA is the default of
-    every entry point, and a request for it on a machine without a card
-    raises instead of quietly running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} requested but CUDA is not available; "
-            "pass device='cpu' to run on the CPU")
-    return dev
 
 
 # ---------------------------------------------------------------------------

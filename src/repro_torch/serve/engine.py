@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import policies
-from repro_torch.models.common import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.runtime.fault_tolerance import (Heartbeat, RestartPolicy,
                                                  StragglerPolicy)
 from repro_torch.serve.chaos import FaultInjector, FaultProfile

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import policies
-from repro_torch.models.common import DTYPES, resolve_device
+from repro_torch.device import resolve_device
+from repro_torch.models.common import DTYPES
 
 
 @dataclasses.dataclass

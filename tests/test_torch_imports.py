@@ -32,7 +32,7 @@ def test_port_and_chip_smoke_import_without_jax():
               "repro_torch.benchmarks.vmem_dispersion",
               "repro_torch.kernels.engine_scan", "repro_torch.core.simulator",
               "repro_torch.core.folding", "repro_torch.core.planner",
-              "repro_torch.configs.paper_machine"):
+              "repro_torch.configs.paper_machine", "repro_torch.device"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
