@@ -23,24 +23,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
                persistent grid; a bf16 d no multiple of 8, an unaligned
                view and a d above the register limit on general; each
                launch counted on the route its plan names);
-  3. engine    K1, the engine scan, against its plain twin (on the
-               host's CPU) at reduced size, bitwise on all three counter
-               sets: every rvv program unfolded and folded on the
-               reference's conformance points and M = 6 machine grid, and
-               lanes on the decision edges (capacities 1, 2, 32, every
-               policy);
+  3. engine    K1, the engine scan (two kernels: K1a, the cVRF pass,
+               and K1b, the L1 pass), against the one-walk plain twin
+               (on the host's CPU) at reduced size, bitwise on all three
+               counter sets, and K1a and K1b each against its own plain
+               version on its own inputs: every rvv program unfolded and
+               folded on the reference's conformance points and M = 6
+               machine grid, and lanes on the decision edges
+               (capacities 1, 2, 32, every policy);
      trace     on the host: every rvv program built at its paper size
                and expanded into the engine's event matrices (T, active
                registers, bytes), T held to TRACE_T; at reduced size the
                full-VRF interpreter against the dispersed one (FIFO,
                capacity 8), bitwise;
      engine    the main path at paper size on the card: simulate_grid
-               (K1) folded as the reference's Session folds (re-running
+               folded as the reference's Session folds (re-running
                unfolded what its rule re-runs), held exactly to
-               BENCH_core.json's table3 cycles and pareto keys; table3
-               unfolded beside it; K1's device time (folded table3 grid,
-               unfolded resnet50_l10) beside the host's prepare and
-               _stack seconds and its bytes bound;
+               BENCH_core.json's table3 cycles and pareto keys, both
+               kernels launched; table3 unfolded beside it; the same
+               checks as above on the main path's inputs cut to 2,048
+               rows; the device times of K1, K1a and K1b (folded table3
+               grid, unfolded resnet50_l10, folded 4 KB pareto grid)
+               beside their bounds, their longest chains counted from the
+               data and the host's prepare and _stack seconds;
   4. prefill   full-width phi3-mini-3.8b (random weights from a seeded
                generator): Model.prefill on 4 x 512 tokens with the flash
                kernel vs the plain sdpa path, counting kernel launches (all
@@ -502,17 +507,17 @@ def check_norm_plan() -> None:
 
 
 def check_engine_plan() -> None:
-    """engine_scan.engine_scan_plan's tile against the built kernel's
-    (engine_scan_tile) at both L1 geometries the main path runs."""
+    """engine_scan.engine_scan_plan's tiles (K1a and K1b) against the
+    built kernels' (engine_scan_tile) at both L1 geometries the main path
+    runs."""
     for kb in PARETO_L1_KB:
         m = _l1_machine(kb)
-        plan = es.engine_scan_plan(m.l1_sets, m.l1_ways)
+        plan = es.engine_scan_plan(m.l1_sets, m.l1_ways)["tile"]
         built = es.built_tile(m.l1_sets, m.l1_ways)
-        want = {key: plan[key] for key in es.TILE_KEYS}
         log("build", engine_scan_tile=f"{m.l1_sets}x{m.l1_ways}", **built,
-            engine_scan_plan_agrees=built == want)
-        check(built == want, f"engine_scan_plan {plan} != the built "
-              f"kernel's {built} at {m.l1_sets} x {m.l1_ways}")
+            engine_scan_plan_agrees=built == plan)
+        check(built == plan, f"engine_scan_plan {plan} != the built "
+              f"kernels' {built} at {m.l1_sets} x {m.l1_ways}")
 
 
 def phase_norm_kernels() -> tuple[float, dict]:
@@ -697,11 +702,92 @@ def engine_bound_ms(x, cfg, kw, machines: int) -> tuple[float, str]:
     return bound_ms(nbytes, ops, torch.float32)
 
 
+def _groups(x, cfg, kw):
+    """engine_scan_plan's launch groups for K1's inputs."""
+    return es.engine_scan_plan(kw["l1_sets"], kw["l1_ways"], kw["lengths"],
+                               cfg, T=x.shape[1])["groups"]
+
+
+def _reg_inputs(group, cfg):
+    """A group's K1a lanes: their programs and configs."""
+    prog, k = map(list, zip(*group["reg_lanes"]))
+    return prog, tuple(np.asarray(a)[k] for a in cfg)
+
+
+def _l1_lanes(group):
+    """A group's K1b lanes (program, K1a lane) and outputs' K1b lanes."""
+    prog, _, reg = map(list, zip(*group["l1_lanes"]))
+    return prog, reg, [j for _, _, j in group["outputs"]]
+
+
+def _no_stream(x):
+    return (torch.empty((0, x.shape[1], es.REG_SITES), dtype=torch.int8,
+                        device=x.device),
+            torch.zeros((0, es.NUM_SETS, len(es.REG_COUNTERS)),
+                        dtype=torch.int32, device=x.device))
+
+
+def _max_diff(got, want) -> int:
+    return int((got.cpu().long() - want.cpu().long()).abs().max()) if (
+        want.numel()) else 0
+
+
+def check_split_halves(label, x_cpu, spill0s, cfg, mach, kw) -> dict:
+    """K1a against engine_reg_plain and K1b against engine_l1_plain on
+    their own inputs (K1b given the plain K1a's stream and counters) in
+    every launch group: the stream within each lane's rows and all
+    counters, bitwise.  Returns the largest |kernel - plain| of each, the
+    plain versions' host ms and the kernels' device ms."""
+    lengths = kw["lengths"]
+    x = x_cpu.cuda()
+    out = dict(reg_err=0, l1_err=0, reg_plain_ms=0.0, l1_plain_ms=0.0,
+               reg_ms=0.0, l1_ms=0.0, reg_lanes=0, l1_lanes=0)
+    for g in _groups(x_cpu, cfg, kw):
+        stream, ctr = _no_stream(x_cpu)
+        if g["reg_lanes"]:
+            prog, rcfg = _reg_inputs(g, cfg)
+            t0 = time.perf_counter()
+            stream, ctr = es.engine_reg_plain(
+                x_cpu, prog, rcfg, track_ab=kw["track_ab"], lengths=lengths)
+            out["reg_plain_ms"] += (time.perf_counter() - t0) * 1e3
+            call = lambda: es.engine_reg_cuda(  # noqa: E731
+                x, prog, rcfg, track_ab=kw["track_ab"], lengths=lengths)
+            got_s, got_c = call()
+            torch.cuda.synchronize()
+            err = _max_diff(got_c, ctr)
+            for r, p in enumerate(prog):
+                err = max(err, _max_diff(got_s[r, :lengths[p]],
+                                         stream[r, :lengths[p]]))
+            check(err == 0, f"engine {label}: K1a differs from "
+                  f"engine_reg_plain by up to {err}")
+            out["reg_ms"] += cuda_ms(call, warmup=1, iters=ENGINE_ITERS)
+            out["reg_lanes"] += len(prog)
+        l1_prog, l1_reg, out_l1 = _l1_lanes(g)
+        t0 = time.perf_counter()
+        want = es.engine_l1_plain(x_cpu, spill0s, stream, ctr, l1_prog,
+                                  l1_reg, out_l1, mach, **kw)
+        out["l1_plain_ms"] += (time.perf_counter() - t0) * 1e3
+        s_dev, c_dev = stream.cuda(), ctr.cuda()
+        call = lambda: es.engine_l1_cuda(  # noqa: E731
+            x, spill0s, s_dev, c_dev, l1_prog, l1_reg, out_l1, mach, **kw)
+        got = call()
+        torch.cuda.synchronize()
+        err = max(_max_diff(a, b) for a, b in zip(got, want))
+        check(err == 0, f"engine {label}: K1b differs from engine_l1_plain "
+              f"by up to {err}")
+        out["l1_ms"] += cuda_ms(call, warmup=1, iters=ENGINE_ITERS)
+        out["l1_lanes"] += len(l1_prog)
+    log("engine", check=f"{label}_halves", equal=True, **out)
+    return out
+
+
 def check_engine_twin(label, preps, sweep, machines, depth=None) -> dict:
-    """K1 against the plain twin on the same inputs: total, period A and
-    period B counters, all 12, bitwise; K1's device time (CUDA events)
-    and the twin's host time on those inputs.  ``depth`` cuts each trace
-    to its first rows (the twin walks about a thousand rows a second)."""
+    """K1 (K1a then K1b, engine_scan_cuda) against the one-walk plain twin
+    on the same inputs: total, period A and period B counters, all 12,
+    bitwise; then each kernel against its own plain version
+    (check_split_halves).  K1's device time (CUDA events) and the twin's
+    host time on those inputs.  ``depth`` cuts each trace to its first
+    rows (the twin walks about a thousand rows a second)."""
     if depth is not None:
         preps = [simulator._slice_prep(p, min(p.num_rows, depth))
                  for p in preps]
@@ -727,15 +813,17 @@ def check_engine_twin(label, preps, sweep, machines, depth=None) -> dict:
                **dict(zip(("bound_ms", "bound_by"), engine_bound_ms(
                    x, cfg, kw, len(machines)))))
     log("engine", check=label, equal=True, **out)
-    return out
+    halves = check_split_halves(label, x_cpu, spill0s, cfg, mach, kw)
+    return dict(out, **halves)
 
 
 def phase_engine_twin() -> dict:
-    """K1 against its twin at reduced size: every rvv program unfolded
-    and folded on CONF_POINTS' configs x (their machines + M6), and the
-    hazard lanes on the smallest programs.  Returns the unfolded check's
-    figures (the kernels line's plain time) with the largest |K1 - twin|
-    of the three checks."""
+    """K1 against its twin, and K1a and K1b against their plain versions,
+    at reduced size: every rvv program unfolded and folded on
+    CONF_POINTS' configs x (their machines + M6), and the hazard lanes on
+    the smallest programs.  Returns the unfolded check's figures (the
+    kernels line's plain times) with the largest |kernel - plain| of the
+    three checks, per kernel."""
     built = {n: b.build(**b.reduced_params).program
              for n, b in rvv.BENCHMARKS.items()}
     sweep = simulator.SweepConfig(
@@ -754,15 +842,137 @@ def phase_engine_twin() -> dict:
     check(sum(p.num_folds > 0 for p in folded) == len(folded) - 1,
           "engine: the folded check's traces did not fold (all but "
           "pathfinder's 133 rows should)")
-    errs = [unfolded["max_abs_err"],
-            check_engine_twin("reduced_folded", folded, sweep,
-                              machines)["max_abs_err"],
-            check_engine_twin(
-                "hazards",
-                [simulator.prepare(built[n]) for n in HAZARD_PROGRAMS],
-                HAZARD_SWEEP, simulator.MachineSweep.from_params(
-                    [simulator.DEFAULT_MACHINE]))["max_abs_err"]]
-    return dict(unfolded, max_abs_err=max(errs))
+    checks = [unfolded,
+              check_engine_twin("reduced_folded", folded, sweep, machines),
+              check_engine_twin(
+                  "hazards",
+                  [simulator.prepare(built[n]) for n in HAZARD_PROGRAMS],
+                  HAZARD_SWEEP, simulator.MachineSweep.from_params(
+                      [simulator.DEFAULT_MACHINE]))]
+    return dict(unfolded, **{k: max(c[k] for c in checks)
+                             for k in ("max_abs_err", "reg_err", "l1_err")})
+
+
+def _walked(x, lengths):
+    """(P, T) mask of the rows each program walks."""
+    rows = torch.as_tensor(lengths, device=x.device)
+    return torch.arange(x.shape[1], device=x.device)[None] < rows[:, None]
+
+
+def reg_bound_ms(x, kw, prog) -> tuple[float, str]:
+    """Least time for K1a's work over its lanes ``prog``: the rows of each
+    program read once, the stream of each lane's rows and its counter
+    sets written once; ENGINE_OPS_PER_REG operations for each active REG
+    access of each lane and a multiply and an add per REG counter,
+    counter set and row."""
+    lengths, sets = kw["lengths"], 3 if kw["track_ab"] else 1
+    rows = sum(lengths[p] for p in set(prog))
+    lane_rows = sum(lengths[p] for p in prog)
+    nbytes = (rows * es.NCOL * x.element_size() + lane_rows * es.REG_SITES
+              + len(prog) * es.NUM_SETS * len(es.REG_COUNTERS) * 4)
+    reg = ((x[..., es.RV:es.RV + 3] != 0).sum(-1)
+           * _walked(x, lengths)).sum(-1).tolist()
+    ops = sum(ENGINE_OPS_PER_REG * reg[p] for p in prog) + (
+        2 * len(es.REG_COUNTERS) * sets * lane_rows)
+    return bound_ms(nbytes, ops, torch.float32)
+
+
+def l1_bound_ms(x, kw, group, accesses: int, machines: int
+                ) -> tuple[float, str]:
+    """Least time for K1b's work on a launch group: the rows of each
+    program and K1a's stream read once, the outputs' counter sets written
+    once; ENGINE_OPS_PER_WAY operations on each way for each of the
+    ``accesses`` (counted from the data) and a multiply and an add per
+    counter, counter set and output."""
+    lengths, sets = kw["lengths"], 3 if kw["track_ab"] else 1
+    rows = sum(lengths[p] for p in {p for p, _, _ in group["l1_lanes"]})
+    stream = sum(lengths[p] for p, _ in group["reg_lanes"]) * es.REG_SITES
+    outputs = len(group["outputs"]) * machines
+    nbytes = (rows * es.NCOL * x.element_size() + stream
+              + sets * outputs * es.NUM_COUNTERS * 4)
+    ops = (ENGINE_OPS_PER_WAY * kw["l1_ways"] * accesses
+           + 2 * es.NUM_COUNTERS * sets * outputs)
+    return bound_ms(nbytes, ops, torch.float32)
+
+
+def bucket_sizes(x, spill0s, stream, group, kw) -> tuple[int, int]:
+    """The accesses of a launch group's K1b lanes, and the most any one
+    (lane, set) bucket holds (K1b's longest chain), counted on the card
+    from the rows and K1a's stream."""
+    total, largest = 0, 0
+    for p, _, r in group["l1_lanes"]:
+        rows = x[p, :kw["lengths"][p]]
+        lines = [rows[:, es.ML:es.ML + 2][rows[:, es.MV:es.MV + 2] != 0]
+                 .long()]
+        if r >= 0:
+            regs = stream[r, :kw["lengths"][p]].long()
+            lines.append(es._wrap32(int(spill0s[p]) + regs[regs >= 0]))
+        lines = torch.cat(lines)
+        counts = torch.bincount(torch.remainder(lines, kw["l1_sets"]),
+                                minlength=kw["l1_sets"])
+        total += lines.numel()
+        largest = max(largest, int(counts.max()))
+    return total, largest
+
+
+def time_engine(label, group_preps, sweep, machine) -> dict:
+    """K1's device time on one of the paper path's inputs (CUDA events,
+    the mean of ENGINE_ITERS calls after a warm-up): the whole call, K1a
+    and K1b alone, each beside its bound and its longest chain counted
+    from the data (the rows of the longest K1a lane, the accesses of the
+    largest K1b bucket) with the ns per chain step."""
+    t0 = time.perf_counter()
+    x_cpu, spill0s, cfg, mach, kw = _engine_inputs(
+        group_preps, sweep, simulator.MachineSweep.from_params([machine]))
+    stack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = x_cpu.cuda()
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    del x_cpu
+    ms = cuda_ms(lambda: es.engine_scan_cuda(x, spill0s, cfg, mach, **kw),
+                 warmup=1, iters=ENGINE_ITERS)
+    groups = _groups(x, cfg, kw)
+    reg_ms = l1_ms = 0.0
+    reg_lanes, longest, accesses, largest = [], 0, 0, 0
+    reg_bound = l1_bound = (0.0, "bytes")
+    for g in groups:
+        stream, ctr = _no_stream(x)
+        if g["reg_lanes"]:
+            prog, rcfg = _reg_inputs(g, cfg)
+            call = lambda: es.engine_reg_cuda(  # noqa: E731
+                x, prog, rcfg, track_ab=kw["track_ab"],
+                lengths=kw["lengths"])
+            stream, ctr = call()
+            reg_ms += cuda_ms(call, warmup=0, iters=ENGINE_ITERS)
+            reg_lanes += prog
+            longest = max(longest, max(kw["lengths"][p] for p in prog))
+        n, big = bucket_sizes(x, spill0s, stream, g, kw)
+        accesses += n
+        largest = max(largest, big)
+        l1_prog, l1_reg, out_l1 = _l1_lanes(g)
+        l1_ms += cuda_ms(lambda: es.engine_l1_cuda(
+            x, spill0s, stream, ctr, l1_prog, l1_reg, out_l1, mach, **kw),
+            warmup=1, iters=ENGINE_ITERS)
+        b = l1_bound_ms(x, kw, g, n, len(mach[0]))
+        l1_bound = (l1_bound[0] + b[0], b[1])
+    if reg_lanes:
+        reg_bound = reg_bound_ms(x, kw, reg_lanes)
+    rows = kw["lengths"]
+    out = dict(
+        programs=len(group_preps), rows=sum(rows), longest_rows=max(rows),
+        configs=len(sweep), l1_sets=kw["l1_sets"], groups=len(groups),
+        ms=ms, **dict(zip(("bound_ms", "bound_by"),
+                          engine_bound_ms(x, cfg, kw, 1))),
+        reg_lanes=len(reg_lanes), reg_ms=reg_ms, reg_bound_ms=reg_bound[0],
+        reg_bound_by=reg_bound[1], reg_chain_rows=longest,
+        reg_ns_per_chain_step=reg_ms * 1e6 / longest if longest else None,
+        l1_ms=l1_ms, l1_bound_ms=l1_bound[0], l1_bound_by=l1_bound[1],
+        l1_accesses=accesses, l1_chain_accesses=largest,
+        l1_ns_per_chain_step=l1_ms * 1e6 / largest if largest else None,
+        stack_pack_s=stack_s, host_to_device_s=copy_s)
+    log("engine", timing=label, **out)
+    return out
 
 
 def _engine_grid(programs, names, sweep, machine, preps, fold=True):
@@ -796,28 +1006,36 @@ def _engine_grid(programs, names, sweep, machine, preps, fold=True):
     return out, refined
 
 
+ENGINE_KERNELS = {"engine_reg": es.engine_reg_cuda,
+                  "engine_l1": es.engine_l1_cuda}
+
+
 def phase_engine(programs) -> dict:
     """The engine's main path at paper size, through simulate_grid on the
-    card (K1): table3 folded (capacity 32, FIFO, 16 KB/2w) and the pareto
-    grid (PARETO_CAPS x 4 and 16 KB) per the reference's fold/refine rule,
-    held exactly to BENCH_core.json; then table3 unfolded, reported beside
-    the folded cycles (a difference is fault R1 of the reference's fold
-    certificate on a paper kernel, not a failure).  Then, outside the
-    counted run, K1's device time for the folded table3 grid and for
-    unfolded resnet50_l10 beside the host's prepare and _stack seconds."""
+    card (K1a and K1b): table3 folded (capacity 32, FIFO, 16 KB/2w) and
+    the pareto grid (PARETO_CAPS x 4 and 16 KB) per the reference's
+    fold/refine rule, held exactly to BENCH_core.json; then table3
+    unfolded, reported beside the folded cycles (a difference is fault R1
+    of the reference's fold certificate on a paper kernel, not a
+    failure).  Each kernel must have launched in that run.  Then, outside
+    the counted run, K1a and K1b against their plain versions on the main
+    path's inputs cut in depth, and the device times of the folded table3
+    grid, unfolded resnet50_l10 and the folded 4 KB pareto grid beside the
+    host's prepare and _stack seconds."""
     bench = json.loads((ROOT / "BENCH_core.json").read_text())["kernels"]
     names = list(rvv.BENCHMARKS)
     preps = {}
     t3 = simulator.SweepConfig.make([isa.NUM_ARCH_VREGS])
-    es.engine_scan_cuda.launches = 0
+    pareto_sweep = simulator.SweepConfig.make(PARETO_CAPS)
+    for fn in ENGINE_KERNELS.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     folded, t3_refined = _engine_grid(programs, names, t3,
                                       simulator.DEFAULT_MACHINE, preps)
     pareto = {}
     for kb in PARETO_L1_KB:
-        pareto[kb] = _engine_grid(
-            programs, names, simulator.SweepConfig.make(PARETO_CAPS),
-            _l1_machine(kb), preps)
+        pareto[kb] = _engine_grid(programs, names, pareto_sweep,
+                                  _l1_machine(kb), preps)
     unfolded = {}
     for name in names:
         out, _ = _engine_grid(programs, [name], t3,
@@ -825,10 +1043,13 @@ def phase_engine(programs) -> dict:
         unfolded[name] = int(out["cycles"][0, 0])
         if name != "resnet50_l10":
             preps.pop((name, False, 256, 2), None)
-    launches = es.engine_scan_cuda.by_route()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in ENGINE_KERNELS.items()}
     main_s = time.perf_counter() - t0
     log("engine", path="paper", seconds=round(main_s, 2),
         launches=launches)
+    check(all(launches.values()), f"engine: a kernel of the main path "
+          f"was never launched: {launches}")
 
     held = 0
     for pi, name in enumerate(names):
@@ -856,49 +1077,36 @@ def phase_engine(programs) -> dict:
         log("engine", pareto_l1_kb=kb, refined=refined, equal=True)
     log("engine", held_to_bench=held, equal=True)
 
-    # Outside the counted run: K1 against its twin on the main path's own
-    # inputs (its lanes, L1 geometries and folded rows), cut in depth.
-    errs = []
+    # Outside the counted run: K1, K1a and K1b against their plain
+    # versions on the main path's own inputs (its lanes, L1 geometries
+    # and folded rows), cut in depth.
+    checks = []
     for label, kb, sweep in (("table3_folded", 16, t3),
-                             ("pareto_4kb", 4, simulator.SweepConfig.make(
-                                 PARETO_CAPS))):
+                             ("pareto_4kb", 4, pareto_sweep)):
         m = _l1_machine(kb)
-        errs.append(check_engine_twin(
+        checks.append(check_engine_twin(
             f"{label}_first_{ENGINE_CHECK_ROWS}_rows",
             [preps[(n, True, m.l1_sets, m.l1_ways)][0] for n in names],
             sweep, simulator.MachineSweep.from_params([m]),
-            depth=ENGINE_CHECK_ROWS)["max_abs_err"])
+            depth=ENGINE_CHECK_ROWS))
 
     # Timing, outside the counted run.
     timing = {}
-    for label, keys in (
-            ("table3_folded", [(n, True, 256, 2) for n in names]),
-            ("resnet50_l10_unfolded", [("resnet50_l10", False, 256, 2)])):
-        group = [preps[k][0] for k in keys]
-        t0 = time.perf_counter()
-        x_cpu, spill0s, cfg, mach, kw = _engine_inputs(
-            group, t3, simulator.MachineSweep.from_params(
-                [simulator.DEFAULT_MACHINE]))
-        stack_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        x = x_cpu.cuda()
-        torch.cuda.synchronize()
-        copy_s = time.perf_counter() - t0
-        ms = cuda_ms(lambda: es.engine_scan_cuda(x, spill0s, cfg, mach,
-                                                 **kw),
-                     warmup=1, iters=ENGINE_ITERS)
-        rows = [p.num_rows for p in group]
+    m4 = _l1_machine(4)
+    for label, keys, sweep, machine in (
+            ("table3_folded", [(n, True, 256, 2) for n in names], t3,
+             simulator.DEFAULT_MACHINE),
+            ("resnet50_l10_unfolded", [("resnet50_l10", False, 256, 2)], t3,
+             simulator.DEFAULT_MACHINE),
+            ("pareto_4kb_folded", [(n, True, m4.l1_sets, m4.l1_ways)
+                                   for n in names], pareto_sweep, m4)):
         timing[label] = dict(
-            programs=len(group), rows=sum(rows), longest=max(rows), ms=ms,
-            ns_per_row_longest_lane=ms * 1e6 / max(rows),
-            **dict(zip(("bound_ms", "bound_by"), engine_bound_ms(
-                x, cfg, kw, 1))),
-            prepare_s=sum(preps[k][1] for k in keys), stack_pack_s=stack_s,
-            host_to_device_s=copy_s)
-        log("engine", timing=label, **timing[label])
-        del x, x_cpu
+            time_engine(label, [preps[k][0] for k in keys], sweep, machine),
+            prepare_s=sum(preps[k][1] for k in keys))
     return dict(launches=launches, held=held, timing=timing,
-                main_path_s=main_s, max_abs_err=max(errs))
+                main_path_s=main_s,
+                **{k: max(c[k] for c in checks)
+                   for k in ("max_abs_err", "reg_err", "l1_err")})
 
 
 # ----------------------------------------------------------------- prefill --
@@ -1410,6 +1618,35 @@ def phase_norm_timing() -> dict:
     return main
 
 
+def engine_entry(name, part, at, engine, twin) -> dict:
+    """The kernels line's record of K1a (``part`` "reg") or K1b ("l1"):
+    its launches on the engine's paper path, the largest |kernel - plain|
+    of its checks, its device time, bound and longest chain at the
+    timing input ``at``, and every timing input's figures (with the whole
+    K1 call's time and bound)."""
+    t = engine["timing"][at]
+    chain = dict(reg=("rows of the longest K1a lane", "reg_chain_rows"),
+                 l1=("accesses of the largest K1b bucket",
+                     "l1_chain_accesses"))[part]
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/engine_scan.cu",
+        replaces="src/repro/core/simulator.py:386",
+        launches=engine["launches"][name],
+        launches_by_path={"engine": engine["launches"][name]},
+        max_abs_err=max(engine[f"{part}_err"], twin[f"{part}_err"],
+                        engine["max_abs_err"], twin["max_abs_err"]),
+        timing_input=at, ms=t[f"{part}_ms"], bound_ms=t[f"{part}_bound_ms"],
+        bound_by=t[f"{part}_bound_by"], chain=chain[0],
+        chain_steps=t[chain[1]],
+        ns_per_chain_step=t[f"{part}_ns_per_chain_step"],
+        plain_ms=twin[f"{part}_plain_ms"], plain_device="cpu",
+        plain_inputs=dict(programs=twin["programs"], rows=max(twin["rows"]),
+                          lanes=twin[f"{part}_lanes"]),
+        ms_at_plain_inputs=twin[f"{part}_ms"], library_ms=None,
+        held_to_bench=engine["held"], timing=engine["timing"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1523,33 +1760,16 @@ def main() -> int:
              **launches("rmsnorm"), launches_by_route=norm_routes,
              held_launches_by_route=norm_held, shape=[NORM_ROWS, NORM_D],
              dtype="bfloat16", **norm_entry),
-        # K1 at the main path's largest call, unfolded resnet50_l10 at
-        # paper size (one lane, capacity 32); its twin cannot walk 9.7 M
-        # rows, so plain_ms is the twin on the host's CPU at the reduced
-        # check's inputs, where K1's own time is ms_at_plain_inputs.
-        dict(name="engine_scan", route="cuda",
-             source="src/repro_torch/kernels/csrc/engine_scan.cu",
-             replaces="src/repro/core/simulator.py:386",
-             launches=sum(engine["launches"].values()),
-             launches_by_path={"engine": sum(engine["launches"].values())},
-             launches_by_route=engine["launches"],
-             max_abs_err=max(engine_twin["max_abs_err"],
-                             engine["max_abs_err"]),
-             shape=[1, engine["timing"]["resnet50_l10_unfolded"]["rows"],
-                    es.NCOL], dtype="int32",
-             ms=engine["timing"]["resnet50_l10_unfolded"]["ms"],
-             bound_ms=engine["timing"]["resnet50_l10_unfolded"][
-                 "bound_ms"],
-             bound_by=engine["timing"]["resnet50_l10_unfolded"]["bound_by"],
-             plain_ms=engine_twin["plain_host_ms"], plain_device="cpu",
-             plain_inputs=dict(programs=engine_twin["programs"],
-                               rows=max(engine_twin["rows"]),
-                               lanes=engine_twin["lanes"]),
-             ms_at_plain_inputs=engine_twin["ms"],
-             bound_ms_at_plain_inputs=engine_twin["bound_ms"],
-             bound_by_at_plain_inputs=engine_twin["bound_by"],
-             library_ms=None, held_to_bench=engine["held"],
-             timing=engine["timing"]),
+        # K1 is two kernels: K1a (the cVRF pass) at the main path's
+        # largest K1a call, the folded 4 KB pareto grid, and K1b (the L1
+        # pass) at its largest, unfolded resnet50_l10 (one lane, capacity
+        # 32).  Their plain versions cannot walk paper-size traces, so
+        # plain_ms is each on the host's CPU at the reduced check's inputs,
+        # where the kernel's own time is ms_at_plain_inputs.
+        engine_entry("engine_reg", "reg", "pareto_4kb_folded", engine,
+                     engine_twin),
+        engine_entry("engine_l1", "l1", "resnet50_l10_unfolded", engine,
+                     engine_twin),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

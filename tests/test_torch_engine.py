@@ -10,13 +10,15 @@ M = 6 machine grid, and hand-made traces that hit each decision edge of
 the engine.  The policies' torch functions are held to the reference's
 on states built directly.  K1 itself runs only on the card
 (``chip_smoke.py``'s engine phases hold it to this twin bitwise); here
-its wrapper's checks, plan and C signatures are held.
+its wrappers' checks, plan and C signatures are held
+(``tests/test_torch_engine_split.py`` holds the split's plain halves).
 """
 
 import contextlib
 import ctypes
 import re
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -493,28 +495,70 @@ def test_engine_scan_dispatches_by_device():
         es.engine_scan_cuda(es.pack(arrays), spill0s, cfg, mach, **kw)
 
 
-@pytest.mark.parametrize("sets,ways,smem", [(256, 2, 28672), (64, 2, 16384),
-                                            (512, 4, 77824)])
-def test_plan_states_the_tile(sets, ways, smem):
-    plan = es.engine_scan_plan(sets, ways)
-    assert plan == dict(route="warp", warps_per_cta=4, chunk_rows=32,
-                        ncol=24, smem_bytes=smem)
+@pytest.mark.parametrize("sets,ways,smem,slots", [(256, 2, 4096, 2),
+                                                  (64, 2, 1024, 2),
+                                                  (512, 4, 8192, 4)])
+def test_plan_states_the_tile(sets, ways, smem, slots):
+    """The tiles of both kernels (K1a's warps and staged rows, K1b's
+    bucketing warps with a shared counter per set, the walker's way
+    slots) and the launch groups of a mixed grid: one K1b lane per
+    (program, cVRF class), the full VRF's shared by its configs, and the
+    buffers' bytes."""
+    plan = es.engine_scan_plan(sets, ways, [100, 40],
+                               ([3, 32, 3, 40], [0, 0, 0, 0],
+                                [False, False, False, False]))
+    assert plan["tile"] == dict(
+        reg_warps_per_cta=4, chunk_rows=32, ncol=24, reg_smem_bytes=13056,
+        tile_rows=1024, hist_warps_per_cta=4, hist_smem_bytes=smem,
+        way_slots=slots, walk_threads=128)
+    assert tuple(plan["tile"]) == es.TILE_KEYS
+    assert plan["classes"] == [0, -1, 0, -1]
+    (group,) = plan["groups"]
+    assert group["reg_lanes"] == [(0, 0), (1, 0)]
+    assert group["l1_lanes"] == [(0, 0, 0), (0, -1, -1), (1, 0, 1),
+                                 (1, -1, -1)]
+    assert group["outputs"] == [(0, 0, 0), (0, 2, 0), (0, 1, 1), (0, 3, 1),
+                                (1, 0, 2), (1, 2, 2), (1, 1, 3), (1, 3, 3)]
+    assert group["bytes"] == dict(stream=2 * 100 * 6,
+                                  records=(140 * 8 + 140 * 2) * 9,
+                                  hist=4 * sets * 4)
+    # Under a budget of one byte each K1b lane is a group
+    with mock.patch.object(es, "STREAM_BUDGET_BYTES", 1):
+        tight = es.engine_scan_plan(sets, ways, [100, 40],
+                                    ([3, 32], [0, 0], [False, False]))
+    assert [g["l1_lanes"] for g in tight["groups"]] == [
+        [(0, 0, 0)], [(0, -1, -1)], [(1, 0, 0)], [(1, -1, -1)]]
 
 
 @pytest.mark.parametrize("sets,ways", [(256, 33), (256, 0), (0, 2),
-                                       (8192, 4)])
+                                       (16384, 4)])
 def test_plan_refuses_what_the_kernel_does_not_take(sets, ways):
     with pytest.raises(ValueError, match="engine_scan takes"):
         es.engine_scan_plan(sets, ways)
 
 
+def test_plan_refuses_rows_past_the_record_packing():
+    with pytest.raises(ValueError, match="engine_scan takes fewer"):
+        es.engine_scan_plan(256, 2, [es.MAX_ROWS])
+
+
 @pytest.mark.parametrize("py_name,c_name", [
-    ("WARPS_PER_CTA", "WARPS"), ("CHUNK_ROWS", "CHUNK"),
+    ("REG_WARPS_PER_CTA", "REG_WARPS"), ("CHUNK_ROWS", "CHUNK"),
     ("MAX_SMEM_BYTES", "MAX_SMEM"), ("NOW_STEP", "NOW_STEP"),
-    ("NUM_COUNTERS", "NCTR")])
+    ("NUM_COUNTERS", "NCTR"), ("TILE_ROWS", "TILE_ROWS"),
+    ("HIST_WARPS_PER_CTA", "HIST_WARPS"), ("SCAN_BLOCK", "SCAN_BLOCK"),
+    ("WALK_THREADS", "WALK_THREADS"), ("REG_SITES", "REG_SITES"),
+    ("SITES", "SITES"), ("NUM_SETS", "NSETS"), ("L1_SUMS", "NL1"),
+    ("TRACE_SUMS", "NTR")])
 def test_plan_constants_match_the_c_source(py_name, c_name):
     m = re.search(rf"constexpr int {c_name} = (\d+);", SRC.read_text())
     assert int(m.group(1)) == getattr(es, py_name)
+
+
+def test_max_rows_matches_the_c_source():
+    m = re.search(r"constexpr long long MAX_ROWS = 1LL << (\d+);",
+                  SRC.read_text())
+    assert 1 << int(m.group(1)) == es.MAX_ROWS
 
 
 @pytest.mark.parametrize("name", sorted(es.ARGTYPES))
@@ -583,26 +627,66 @@ def fake_card(monkeypatch):
                                     (700, RuntimeError)])
 def test_cuda_wrapper_launches_once_and_counts_only_success(fake_card, rc,
                                                             exc):
+    """K1 on a grid with a cVRF class and the full VRF: K1a once for the
+    two programs' capacity-3 lanes, then K1b once for all four K1b lanes;
+    each wrapper counts its launch only when it succeeded, and a failed
+    K1a launch raises before K1b."""
     calls, set_rc = fake_card
     set_rc[0] = rc
     x = torch.zeros((2, 5, es.NCOL), dtype=torch.int32)
-    fn = es.engine_scan_cuda
-    before = fn.launches
+    before = (es.engine_reg_cuda.launches, es.engine_l1_cuda.launches)
     args = (_FakeCudaTensor(x), [0, 0], ([3, 32], [0, 3], [False, True]),
             ([0], [1], [5]))
     kw = dict(l1_sets=256, l1_ways=2, lengths=[5, 3])
     with contextlib.ExitStack() as stack:
         if exc:
             stack.enter_context(pytest.raises(exc))
-        out = fn(*args, **kw)
-    (name, a), = calls
-    assert name == "engine_scan_launch"
-    assert a[1:3] == (2, 5) and a[8] == 2 and a[12] == 1
-    assert a[13:16] == (256, 2, 1) and a[-1] == 7
-    assert fn.launches - before == (0 if exc else 1)
-    assert fn.by_route().keys() == {"warp"}
+        out = es.engine_scan_cuda(*args, **kw)
+    names = [name for name, _ in calls]
+    assert names == ["engine_reg_launch"] + ([] if exc else
+                                             ["engine_l1_launch"])
+    a = calls[0][1]
+    assert a[1:3] == (2, 5) and a[8:10] == (2, 1) and a[-1] == 7
+    after = (es.engine_reg_cuda.launches, es.engine_l1_cuda.launches)
+    assert [n - b for n, b in zip(after, before)] == [0 if exc else 1] * 2
+    assert es.engine_reg_cuda.by_route().keys() == {"warp"}
+    assert es.engine_l1_cuda.by_route().keys() == {"set"}
     if not exc:
+        a = calls[1][1]
+        assert a[1:3] == (2, 5) and a[7] == 4 and a[10] == 4 and a[12] == 1
+        assert a[16:20] == (256, 2, 1, 2) and a[-1] == 7
+        assert a[21] == 5 * (8 + 2) + 3 * (8 + 2)        # access slots
         assert [o.shape for o in out] == [(2, 2, 1, 12)] * 3
+
+
+def test_full_vrf_grid_launches_only_the_l1_pass(fake_card):
+    calls, _ = fake_card
+    x = _FakeCudaTensor(torch.zeros((1, 4, es.NCOL), dtype=torch.int32))
+    es.engine_scan_cuda(x, [0], ([32, 40], [0, 1], [False, False]),
+                        ([0, 1], [1, 1], [5, 3]), l1_sets=64, l1_ways=2)
+    ((name, a),) = calls
+    assert name == "engine_l1_launch" and a[7] == 1 and a[10] == 2
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda x: es.engine_reg_cuda(x, [0], ([32], [0], [False])),
+     "full VRF"),
+    (lambda x: es.engine_reg_cuda(x, [1], ([3], [0], [False])),
+     "prog must lie"),
+    (lambda x: es.engine_l1_cuda(
+        x, [0], torch.zeros((0, 4, 6), dtype=torch.int8),
+        torch.zeros((0, 3, 6), dtype=torch.int32), [0], [0], [0],
+        ([0], [1], [5]), l1_sets=256, l1_ways=2), "out of range"),
+    (lambda x: es.engine_l1_cuda(
+        x, [0], torch.zeros((0, 4, 6), dtype=torch.int8),
+        torch.zeros((0, 3, 6), dtype=torch.int32), [0], [-1], [0],
+        ([0], [1], [5]), l1_sets=256, l1_ways=64), "engine_scan takes")])
+def test_kernel_wrappers_refuse_before_launch(fake_card, call, match):
+    calls, _ = fake_card
+    x = _FakeCudaTensor(torch.zeros((1, 4, es.NCOL), dtype=torch.int32))
+    with pytest.raises(ValueError, match=match):
+        call(x)
+    assert calls == []
 
 
 @pytest.mark.parametrize("lengths,shape,match", [
