@@ -46,6 +46,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
                grid, unfolded resnet50_l10, folded 4 KB pareto grid)
                beside their bounds, their longest chains counted from the
                data and the host's prepare and _stack seconds;
+     paper     the front door at paper size: repro_torch.benchmarks.run
+               in this process over the nine paper suites (table3, fig2,
+               fig4, fig5, fig6, fig8, pareto, policy_headroom,
+               ablation_sensitivity) through the api.Session that [trace]
+               and [engine] filled (K1 on the card), one suite at a time
+               under torch.profiler: per suite its rows, wall, prepare and
+               engine seconds, engine calls, K1a/K1b launches and K1's
+               device ms; the report's kernel records held exactly to
+               BENCH_core.json (table3, pareto, policy_headroom,
+               ablation_sensitivity: 165 values, all present), its
+               metrics (names, kinds) and macro_models blocks equal to
+               BENCH_core.json's, fig4's pathfinder row at capacity 3 as
+               the reference's own check; K1a and K1b launched and no
+               plain engine function called; the report written to
+               chiprun_out/paper_report.json;
   4. prefill   full-width phi3-mini-3.8b (random weights from a seeded
                generator): Model.prefill on 4 x 512 tokens with the flash
                kernel vs the plain sdpa path, counting kernel launches (all
@@ -81,7 +96,9 @@ device the script prints no result and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -96,7 +113,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.benchmarks import roofline, vmem_dispersion  # noqa: E402
-from repro_torch import rvv  # noqa: E402
+from repro_torch.benchmarks import run as bench_run  # noqa: E402
+from repro_torch.benchmarks.engine_timing import KERNEL_NAMES  # noqa: E402
+from repro_torch import api, rvv  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.core import (events, interpreter, isa, policies,  # noqa: E402
                               simulator)
@@ -559,7 +578,7 @@ def phase_norm_kernels() -> tuple[float, dict]:
 
 # ------------------------------------------------------------------- trace --
 
-def phase_trace() -> dict:
+def phase_trace(session) -> dict:
     """The trace layer on the host: build every rvv program at its
     paper_params and expand it into the engine's event matrices, printing
     the sizes the engine kernel takes (instructions T, active vector
@@ -567,15 +586,15 @@ def phase_trace() -> dict:
     at reduced_params, the full-VRF interpreter against the dispersed one
     (FIFO, TRACE_CHECK_CAPACITY registers): memory and registers bitwise
     equal, and the outputs within the kernel's tolerance of its
-    reference.  Returns the paper-size programs by name (the engine
-    phase runs them)."""
+    reference.  The programs are built through ``session`` (the [engine]
+    and [paper] phases reuse them); returns them by name."""
     check(list(rvv.BENCHMARKS) == list(TRACE_T),
           f"rvv registry order {list(rvv.BENCHMARKS)}")
     t_phase = time.perf_counter()
     sizes, programs = {}, {}
     for name, bench in rvv.BENCHMARKS.items():
         t0 = time.perf_counter()
-        prog = programs[name] = bench.build(**bench.paper_params).program
+        prog = programs[name] = session.built(name).program
         t1 = time.perf_counter()
         ev = events.expand(prog)
         t2 = time.perf_counter()
@@ -638,8 +657,8 @@ HAZARD_PROGRAMS = ("pathfinder", "gemv", "densenet121_l105")
 # BENCH_core.json's suites all ran folded through the reference's
 # api.Session, which re-runs a program unfolded when its fold certificate
 # failed at some point of its grid and it has at most REFINE_MAX_ROWS
-# instructions (src/repro/api.py REFINE_MAX_ROWS and Session._refine)
-REFINE_MAX_ROWS = 400_000
+# instructions (Session._refine, the port's as the reference's)
+REFINE_MAX_ROWS = api.REFINE_MAX_ROWS
 # The pareto suite's grid (benchmarks/pareto_frontier.py): capacities x L1
 # sizes in KB, 2 ways of 32-byte lines, FIFO, the default latencies
 PARETO_CAPS = (3, 4, 5, 6, 8, 10, 12, 16, 32)
@@ -975,18 +994,20 @@ def time_engine(label, group_preps, sweep, machine) -> dict:
     return out
 
 
-def _engine_grid(programs, names, sweep, machine, preps, fold=True):
+def _engine_grid(session, programs, names, sweep, machine, preps,
+                 fold=True):
     """simulate_grid on the card over the named paper-size programs,
     folded as the reference's Session folds them, then each program whose
     certificate failed at some grid point re-run unfolded if it has at
-    most REFINE_MAX_ROWS rows.  ``preps`` caches the prepared traces by
-    (name, fold, L1 geometry) and their host seconds."""
+    most REFINE_MAX_ROWS rows.  ``preps`` records the prepared traces by
+    (name, fold, L1 geometry) and the host seconds ``session.prepared``
+    took for them (the [paper] phase's Session reuses them)."""
     def prep(name, fold):
         key = (name, fold, machine.l1_sets, machine.l1_ways)
         if key not in preps:
             t0 = time.perf_counter()
-            preps[key] = (simulator.prepare(programs[name], fold=fold,
-                                            machine=machine),
+            preps[key] = (session.prepared(name, fold=fold,
+                                           machine=machine),
                           time.perf_counter() - t0)
         return preps[key][0]
 
@@ -1010,7 +1031,7 @@ ENGINE_KERNELS = {"engine_reg": es.engine_reg_cuda,
                   "engine_l1": es.engine_l1_cuda}
 
 
-def phase_engine(programs) -> dict:
+def phase_engine(session, programs) -> dict:
     """The engine's main path at paper size, through simulate_grid on the
     card (K1a and K1b): table3 folded (capacity 32, FIFO, 16 KB/2w) and
     the pareto grid (PARETO_CAPS x 4 and 16 KB) per the reference's
@@ -1030,19 +1051,17 @@ def phase_engine(programs) -> dict:
     for fn in ENGINE_KERNELS.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    folded, t3_refined = _engine_grid(programs, names, t3,
+    folded, t3_refined = _engine_grid(session, programs, names, t3,
                                       simulator.DEFAULT_MACHINE, preps)
     pareto = {}
     for kb in PARETO_L1_KB:
-        pareto[kb] = _engine_grid(programs, names, pareto_sweep,
+        pareto[kb] = _engine_grid(session, programs, names, pareto_sweep,
                                   _l1_machine(kb), preps)
     unfolded = {}
     for name in names:
-        out, _ = _engine_grid(programs, [name], t3,
+        out, _ = _engine_grid(session, programs, [name], t3,
                               simulator.DEFAULT_MACHINE, preps, fold=False)
         unfolded[name] = int(out["cycles"][0, 0])
-        if name != "resnet50_l10":
-            preps.pop((name, False, 256, 2), None)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in ENGINE_KERNELS.items()}
     main_s = time.perf_counter() - t0
@@ -1107,6 +1126,173 @@ def phase_engine(programs) -> dict:
                 main_path_s=main_s,
                 **{k: max(c[k] for c in checks)
                    for k in ("max_abs_err", "reg_err", "l1_err")})
+
+
+# ------------------------------------------------------------------- paper --
+
+# The paper suites [paper] runs through repro_torch.benchmarks.run, at
+# paper size (kernel_params "paper", no max_events)
+PAPER_SUITES = ("table3", "fig2", "fig4", "fig5", "fig6", "fig8", "pareto",
+                "policy_headroom", "ablation_sensitivity")
+# The suites whose kernel records BENCH_core.json holds, and how many of
+# its values each has: 165 in all
+HELD_SUITES = {"table3": 22, "pareto": 75, "policy_headroom": 36,
+               "ablation_sensitivity": 32}
+# The reference's own check of the engine (.claude/skills/verify/SKILL.md):
+# pathfinder's fig4 row at capacity 3
+FIG4_PATHFINDER_CAP3 = dict(norm_perf="0.5683", hit_rate="0.5",
+                            spills="741", fills="868")
+# The engine's plain versions, which must not run on the card's path
+PLAIN_ENGINE = ("engine_scan_plain", "engine_split_plain",
+                "engine_reg_plain", "engine_l1_plain")
+
+
+@contextlib.contextmanager
+def plain_engine_calls():
+    """Count the calls of the engine's plain versions while the block
+    runs (they are looked up by name in kernels/engine_scan.py, so a
+    counting wrapper there sees every call)."""
+    calls = dict.fromkeys(PLAIN_ENGINE, 0)
+    saved = {name: getattr(es, name) for name in PLAIN_ENGINE}
+
+    def counted(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return saved[name](*args, **kw)
+        return call
+    for name in PLAIN_ENGINE:
+        setattr(es, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(es, name, fn)
+
+
+def _csv_rows(text: str, first_field: str) -> list[dict]:
+    """The rows of the CSV block whose header starts with first_field."""
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines)
+                 if ln.startswith(first_field + ","))
+    header = lines[start].split(",")
+    rows = []
+    for ln in lines[start + 1:]:
+        if not ln or ln.startswith("#"):
+            break
+        rows.append(dict(zip(header, ln.split(","))))
+    return rows
+
+
+def _engine_device_ms(prof) -> float | None:
+    """K1's device ms in a profiler window: the engine kernels' summed
+    device time (None where the profiler recorded none)."""
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if us and KERNEL_NAMES.search(e.key):
+            total += us / 1e3
+    return total or None
+
+
+def phase_paper(session) -> dict:
+    """The port's front door at paper size: python -m
+    repro_torch.benchmarks.run, in this process, over PAPER_SUITES on the
+    card through ``session`` (which already holds the traces the earlier
+    phases prepared), one suite at a time under torch.profiler (the
+    engine kernels' device time).  Holds the report's kernel records
+    exactly to BENCH_core.json on every key of HELD_SUITES (165 values,
+    all present), its metrics block (names and kinds) and macro_models
+    block to BENCH_core.json's, fig4's pathfinder row at capacity 3 to
+    FIG4_PATHFINDER_CAP3; K1a and K1b must launch and no plain version of
+    the engine may run.  Writes the merged report to
+    chiprun_out/paper_report.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bench = json.loads((ROOT / "BENCH_core.json").read_text())
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    report, per_suite, stdout = None, {}, {}
+    with plain_engine_calls() as plain:
+        for suite in PAPER_SUITES:
+            path = out_dir / f"paper_{suite}.json"
+            text = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                    contextlib.redirect_stdout(text):
+                rc = bench_run.main(["--json", str(path), suite],
+                                    session=session)
+                torch.cuda.synchronize()
+            k1_ms = _engine_device_ms(prof)
+            check(rc == 0, f"paper: run.py {suite} exited {rc}")
+            stdout[suite] = text.getvalue()
+            rep = json.loads(path.read_text())
+            rec = rep["suites"][suite]
+            per_suite[suite] = dict(
+                rows=rec["rows"], wall_s=rec["wall_s"],
+                prepare_s=rec["prepare_s"], engine_s=rec["engine_s"],
+                dispatches=rec["dispatches"], launches=rec["launches"],
+                k1_device_ms=k1_ms,
+                # the suite's wall time with the profiler's start, stop
+                # and key_averages around it
+                profiled_s=round(time.perf_counter() - t0, 3))
+            log("paper", suite=suite, **per_suite[suite])
+            if report is None:
+                report = rep
+            else:
+                report["suites"].update(rep["suites"])
+                for name, keys in rep["kernels"].items():
+                    report["kernels"].setdefault(name, {}).update(keys)
+    seconds = time.perf_counter() - t_phase
+    (out_dir / "paper_report.json").write_text(
+        json.dumps(report, indent=1, sort_keys=True))
+    check(not any(plain.values()), f"paper: a plain version of the "
+          f"engine ran on the card's path: {plain}")
+
+    held, missing, wrong = 0, [], []
+    for name, keys in bench["kernels"].items():
+        for key, want in keys.items():
+            suite = key.split(".")[0]
+            suite = next((s for s in HELD_SUITES if suite == s
+                          or suite.startswith(s + "_")), None)
+            if suite is None:
+                continue
+            got = report["kernels"].get(name, {}).get(key)
+            if got is None:
+                missing.append(f"{name}:{key}")
+            elif got != want:
+                wrong.append(f"{name}:{key} {got} != {want}")
+            else:
+                held += 1
+    want_held = sum(HELD_SUITES.values())
+    log("paper", held_to_bench=held, equal=not missing and not wrong
+        and held == want_held)
+    check(not missing, f"paper: BENCH_core.json keys missing: {missing}")
+    check(not wrong, f"paper: values differ from BENCH_core.json: {wrong}")
+    check(held == want_held, f"paper: held {held} values, want "
+          f"{want_held}")
+    kinds = {n: m["kind"] for n, m in report["metrics"].items()}
+    check(kinds == {n: m["kind"] for n, m in bench["metrics"].items()},
+          f"paper: the metrics block differs from BENCH_core.json's: "
+          f"{sorted(kinds)}")
+    check(report["macro_models"] == bench["macro_models"],
+          "paper: macro_models differ from BENCH_core.json's")
+    row = next(r for r in _csv_rows(stdout["fig4"], "name")
+               if r["name"] == "pathfinder" and r["capacity"] == "3")
+    got = {k: row[k] for k in FIG4_PATHFINDER_CAP3}
+    log("paper", fig4_pathfinder_cap3=got,
+        equal=got == FIG4_PATHFINDER_CAP3)
+    check(got == FIG4_PATHFINDER_CAP3, f"paper: fig4 pathfinder at "
+          f"capacity 3 is {got}, want {FIG4_PATHFINDER_CAP3}")
+    launches = {k: sum(s["launches"][k] for s in per_suite.values())
+                for k in ENGINE_KERNELS}
+    log("paper", seconds=round(seconds, 2), metrics=len(kinds),
+        macro_models=sorted(report["macro_models"]), launches=launches,
+        plain_calls=plain)
+    return dict(suites=per_suite, held=held, seconds=seconds,
+                launches=launches)
 
 
 # ----------------------------------------------------------------- prefill --
@@ -1620,7 +1806,9 @@ def phase_norm_timing() -> dict:
 
 def engine_entry(name, part, at, engine, twin) -> dict:
     """The kernels line's record of K1a (``part`` "reg") or K1b ("l1"):
-    its launches on the engine's paper path, the largest |kernel - plain|
+    its launches on the engine's paper path and in the [paper] phase's
+    suites (the values each held to BENCH_core.json, and each suite's
+    figures), the largest |kernel - plain|
     of its checks, its device time, bound and longest chain at the
     timing input ``at``, and every timing input's figures (with the whole
     K1 call's time and bound)."""
@@ -1632,8 +1820,8 @@ def engine_entry(name, part, at, engine, twin) -> dict:
         name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/engine_scan.cu",
         replaces="src/repro/core/simulator.py:386",
-        launches=engine["launches"][name],
-        launches_by_path={"engine": engine["launches"][name]},
+        launches=sum(engine["launches_by_path"][name].values()),
+        launches_by_path=engine["launches_by_path"][name],
         max_abs_err=max(engine[f"{part}_err"], twin[f"{part}_err"],
                         engine["max_abs_err"], twin["max_abs_err"]),
         timing_input=at, ms=t[f"{part}_ms"], bound_ms=t[f"{part}_bound_ms"],
@@ -1644,7 +1832,8 @@ def engine_entry(name, part, at, engine, twin) -> dict:
         plain_inputs=dict(programs=twin["programs"], rows=max(twin["rows"]),
                           lanes=twin[f"{part}_lanes"]),
         ms_at_plain_inputs=twin[f"{part}_ms"], library_ms=None,
-        held_to_bench=engine["held"], timing=engine["timing"])
+        held_to_bench=engine["held"] + engine["paper"]["held"],
+        timing=engine["timing"], paper_suites=engine["paper"]["suites"])
 
 
 def main() -> int:
@@ -1686,9 +1875,23 @@ def main() -> int:
     gemm_errs = phase_gemm_kernels()
     norm_err, norm_held = phase_norm_kernels()
     engine_twin = phase_engine_twin()
-    programs = phase_trace()
-    engine = phase_engine(programs)
+    session = api.Session()
+    programs = phase_trace(session)
+    engine = phase_engine(session, programs)
     del programs
+    for fn in ENGINE_KERNELS.values():
+        fn.launches = 0
+    paper = phase_paper(session)
+    paper_launches = {name: fn.launches
+                      for name, fn in ENGINE_KERNELS.items()}
+    check(all(paper_launches.values()) and paper_launches == paper[
+        "launches"], f"paper: K1 launches {paper_launches}, the report's "
+          f"{paper['launches']}")
+    engine["launches_by_path"] = {
+        name: {"engine": engine["launches"][name],
+               "paper": paper_launches[name]} for name in ENGINE_KERNELS}
+    engine["paper"] = paper
+    del session
 
     cfg = get(ARCH)
     model = Model(cfg, device="cuda")

@@ -1,27 +1,72 @@
-"""Labeled result grids for the port's sweeps (the part of
-``repro/api.py`` that the measured roofline uses).
+"""One front door for the paper's design-space sweeps, on the card.
 
-A numpy copy of the reference's axis value types (:class:`L1Geometry`,
-:class:`ConfigPoint`, :class:`Axis`) and of :class:`SweepResult` whole:
-``from_table``, ``select``, ``value``, ``to_rows``, ``quantile``, and the
-metric algebra ``derive`` / ``normalize`` / N-objective ``pareto``, which
-:mod:`repro_torch.metrics` evaluates.  The reference module imports its
-cycle engine, which the port has not reached yet, so the port keeps its
-own copy; ``Sweep``, ``Session`` and the engine follow with the engine
-slice.
+The port of the reference's ``repro/api.py``.  Every result in the paper
+— Fig 4's capacity sweep, Table 3's speedups, the memory-system ablation —
+is a point grid over the same named axes:
+
+  ``kernel``        benchmark name from the :mod:`repro_torch.rvv` registry
+  ``capacity``      physical registers in the compact VRF
+  ``policy``        replacement policy (int constant or ``"fifo"``-style name)
+  ``alloc_no_fetch``  beyond-paper write-allocate optimisation
+  ``l1_geometry``   static L1 shape (:class:`L1Geometry`): each value is
+                    its own engine call
+  ``mem_latency`` / ``l1_hit_cycles`` / ``uop_hit_cycles``
+                    machine-latency axes, per-lane inputs of every call
+
+A :class:`Sweep` declares values for those axes; a :class:`Session`
+executes it.  ``Session.run`` plans one engine call per L1 geometry
+(:func:`repro_torch.core.simulator.simulate_grid`: K1, the engine scan,
+on the card; its plain twin with ``device="cpu"``), with every kernel of
+the sweep and the whole latency grid in it, and refines each uncertified
+fold the reference's way.  The result is a :class:`SweepResult` with
+labeled axes, per-point counters and per-point ``fold_exact``
+certificates, plus ``to_rows()`` / ``select()`` / ``value()`` accessors
+and the metric algebra (``derive`` / ``normalize`` / ``pareto``,
+evaluated by the :mod:`repro_torch.metrics` registry).
+
+Where the port differs from the reference, on purpose:
+
+  * the card is the default device (``Session(device="cuda")``) and a
+    request for it without one raises; there is no fallback to the CPU;
+  * K1 walks each program's own rows, so the plan has no shape buckets
+    (the reference's padding buckets for XLA): its entries carry
+    ``l1_geometry``, ``kernels`` and ``fused``;
+  * XLA's compile count has no counterpart: ``dispatch_count()`` counts
+    the ``simulate_grid`` calls the Session made (refines included) and
+    ``launch_count()`` the K1a/K1b launches they caused (0 on the CPU);
+    a run's ``meta`` carries ``dispatches`` and ``launches``, no
+    ``compiles``;
+  * the ``network`` axis (the bridge) and the ``cores``/``cluster`` axes
+    (the cluster engine) are not ported yet and raise
+    ``NotImplementedError``.
+
+The Session owns the caches: built kernels and prepared (expanded +
+folded) traces.  Two Sessions share nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 
-from repro_torch.core import policies
+from repro_torch.core import folding, policies, simulator
+from repro_torch.core.simulator import (DEFAULT_MACHINE, MachineSweep,
+                                        SweepConfig)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import engine_scan as _k1
 
-__all__ = ["L1Geometry", "ConfigPoint", "Axis", "SweepResult"]
+__all__ = [
+    "L1Geometry", "ConfigPoint", "Axis", "Sweep", "SweepResult", "Session",
+    "default_session", "reset_default_session", "sweep_program",
+    "REFINE_MAX_ROWS",
+]
 
+# A folded trace whose steadiness check fails is re-simulated in full when
+# the full trace is affordable; bigger traces keep the (flagged) fold.
+REFINE_MAX_ROWS = 400_000
 
 
 # ---------------------------------------------------------------------------
@@ -33,9 +78,9 @@ __all__ = ["L1Geometry", "ConfigPoint", "Axis", "SweepResult"]
 class L1Geometry:
     """Static L1 data-cache shape: ``sets`` x ``ways`` lines of 32 bytes.
 
-    These two fields size the engine's L1 state arrays, so every distinct
-    geometry is a separate compiled executable — which is exactly why the
-    planner treats this axis as its outer loop rather than a traced one.
+    These two fields size the engine's L1 state (K1b buckets accesses by
+    set), so every distinct geometry is a separate engine call — which is
+    why the planner treats this axis as its outer loop.
     """
 
     sets: int = 256
@@ -146,6 +191,119 @@ class Axis:
 
 
 # ---------------------------------------------------------------------------
+# The declarative sweep spec.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Sweep:
+    """A declarative design-space sweep over named axes.
+
+    The config axes (``capacity`` x ``policy`` x ``alloc_no_fetch``) and the
+    machine-latency axes (``mem_latency`` x ``l1_hit_cycles`` x
+    ``uop_hit_cycles``) form full cartesian products; ``config_points``
+    replaces the three config axes with one zipped ``config`` axis for
+    irregular grids.  ``l1_geometry`` is the static outer axis the planner
+    orchestrates (one engine call per geometry).
+
+    ``kernel_params`` selects the build size: ``"paper"`` (default),
+    ``"reduced"``, or a dict of build kwargs applied to every kernel.
+    ``fold=None`` defers to the Session's fold policy.  ``max_events`` is
+    the legacy truncation budget (forces ``fold`` off) — kept as an explicit
+    escape hatch for smoke runs; prefer folding.
+
+    ``network`` (models lowered through the bridge) and ``cores`` /
+    ``cluster`` (N dispersion cores behind a shared L2) are the
+    reference's further axes; the port has neither the bridge nor the
+    cluster engine yet, so any value other than the defaults raises
+    ``NotImplementedError``.
+    """
+
+    kernels: tuple[str, ...] = ()
+    capacity: tuple[int, ...] = (8,)
+    policy: tuple[int, ...] = (policies.FIFO,)
+    alloc_no_fetch: tuple[bool, ...] = (False,)
+    config_points: tuple[ConfigPoint, ...] | None = None
+    mem_latency: tuple[int, ...] = (DEFAULT_MACHINE.mem_latency,)
+    l1_hit_cycles: tuple[int, ...] = (DEFAULT_MACHINE.l1_hit_cycles,)
+    uop_hit_cycles: tuple[int, ...] = (DEFAULT_MACHINE.uop_hit_cycles,)
+    l1_geometry: tuple[L1Geometry, ...] = (
+        L1Geometry(DEFAULT_MACHINE.l1_sets, DEFAULT_MACHINE.l1_ways),)
+    kernel_params: str | dict = "paper"
+    fold: bool | None = None
+    max_events: int | None = None
+    network: tuple[str, ...] = ()
+    cores: tuple[int, ...] = (1,)
+    cluster: object | None = None
+
+    def __post_init__(self):
+        fix = object.__setattr__
+        if self.network:
+            raise NotImplementedError(
+                "the network axis is not ported yet: it needs the bridge "
+                "(ROADMAP: P6)")
+        fix(self, "cores", tuple(int(n) for n in _as_tuple(self.cores)))
+        if self.cores != (1,) or self.cluster is not None:
+            raise NotImplementedError(
+                "the cores and cluster axes are not ported yet: they need "
+                "the cluster engine (ROADMAP: P4, with K2)")
+        fix(self, "kernels", tuple(_as_tuple(self.kernels)))
+        if not self.kernels:
+            raise ValueError("Sweep needs at least one kernel name")
+        fix(self, "capacity", tuple(int(c) for c in _as_tuple(self.capacity)))
+        fix(self, "policy",
+            tuple(_policy_id(p) for p in _as_tuple(self.policy)))
+        fix(self, "alloc_no_fetch",
+            tuple(bool(a) for a in _as_tuple(self.alloc_no_fetch)))
+        if self.config_points is not None:
+            fix(self, "config_points",
+                tuple(_as_config_point(c)
+                      for c in _as_tuple(self.config_points)))
+        fix(self, "mem_latency",
+            tuple(int(m) for m in _as_tuple(self.mem_latency)))
+        fix(self, "l1_hit_cycles",
+            tuple(int(m) for m in _as_tuple(self.l1_hit_cycles)))
+        fix(self, "uop_hit_cycles",
+            tuple(int(m) for m in _as_tuple(self.uop_hit_cycles)))
+        fix(self, "l1_geometry",
+            tuple(_as_geometry(g) for g in _as_tuple(self.l1_geometry)))
+
+    # -- derived engine inputs -------------------------------------------
+
+    def config(self) -> SweepConfig:
+        """The flattened (C,) config axis of the engine's lanes."""
+        if self.config_points is not None:
+            return SweepConfig(
+                np.asarray([c.capacity for c in self.config_points],
+                           np.int32),
+                np.asarray([c.policy for c in self.config_points], np.int32),
+                np.asarray([c.alloc_no_fetch for c in self.config_points],
+                           bool))
+        return SweepConfig.product(self.capacity, self.policy,
+                                   self.alloc_no_fetch)
+
+    def machine_sweep(self, geometry: L1Geometry) -> MachineSweep:
+        """The (M,) latency grid bound to one static geometry."""
+        return MachineSweep.product(
+            self.mem_latency, self.l1_hit_cycles, self.uop_hit_cycles,
+            l1_sets=geometry.sets, l1_ways=geometry.ways)
+
+    def axes(self) -> tuple[Axis, ...]:
+        """The labeled result axes, in canonical (row-major) order."""
+        if self.config_points is not None:
+            cfg_axes = (Axis("config", self.config_points),)
+        else:
+            cfg_axes = (Axis("capacity", self.capacity),
+                        Axis("policy", self.policy),
+                        Axis("alloc_no_fetch", self.alloc_no_fetch))
+        return ((Axis("kernel", self.kernels),) + cfg_axes
+                + (Axis("l1_geometry", self.l1_geometry),)
+                + (Axis("mem_latency", self.mem_latency),
+                   Axis("l1_hit_cycles", self.l1_hit_cycles),
+                   Axis("uop_hit_cycles", self.uop_hit_cycles)))
+
+
+# ---------------------------------------------------------------------------
 # The labeled result grid.
 # ---------------------------------------------------------------------------
 
@@ -160,11 +318,15 @@ _GEOMETRY_FIELDS = {"l1_sets": "sets", "l1_ways": "ways", "l1_kb": "kbytes"}
 class SweepResult:
     """Counter grids over labeled axes.
 
-    ``data`` maps counter name -> ndarray shaped like the axes (for the
-    reference's engine sweeps: the engine counters, ``hit_rate``,
-    ``event_scale`` and the per-point ``fold_exact`` certificate; for a
-    table such as the roofline's: its measured fields).  ``meta`` records
-    the execution history, e.g. the metrics ``derive`` evaluated.
+    ``data`` maps counter name -> ndarray shaped like the axes (for an
+    engine sweep, in :meth:`Sweep.axes` order: the engine counters,
+    ``hit_rate``, ``event_scale`` and the per-point ``fold_exact``
+    certificate; for a table such as the roofline's: its measured
+    fields).  ``fold_exact`` certifies the periodic-fold extrapolation
+    only — it is vacuously True for unfolded points, including
+    ``max_events``-truncated smoke runs, whose scaled-prefix approximation
+    is flagged by ``event_scale > 1`` instead.  ``meta`` records the
+    execution plan and history, e.g. the metrics ``derive`` evaluated.
     """
 
     axes: tuple[Axis, ...]
@@ -343,7 +505,8 @@ class SweepResult:
                 for k, v in self.data.items()}
         return SweepResult(axes, data, self.meta)
 
-    # -- the metric algebra (repro.metrics evaluates; this owns the axes) --
+    # -- the metric algebra (repro_torch.metrics evaluates; this owns the
+    # axes) --
 
     def _baseline_view(self, baseline: dict) -> "SweepResult":
         """The baseline-aligned view of this grid, broadcastable against
@@ -398,13 +561,13 @@ class SweepResult:
 
     def derive(self, metric, baseline: dict | None = None,
                out: str | None = None, **params) -> "SweepResult":
-        """Evaluate a registered :mod:`repro_torch.metrics` metric over the whole
-        grid and return a new result carrying it as an extra labeled
+        """Evaluate a registered :mod:`repro_torch.metrics` metric over the
+        whole grid and return a new result carrying it as an extra labeled
         counter (under ``out`` or the metric's name).  Relational metrics
         require ``baseline=`` (an axis-selection dict); extra keyword
         arguments are metric parameters.  Sub-metrics the evaluation pulls
         in via ``ctx.counter`` ride along in the returned data.  Deriving
-        is pure counter algebra — it never compiles or dispatches."""
+        is pure counter algebra — it never runs the engine."""
         from repro_torch import metrics as _metrics
         m = _metrics.get(metric)
         r = SweepResult(self.axes, dict(self.data), self.meta)
@@ -512,3 +675,300 @@ class SweepResult:
             rows.append(row)
         rows.sort(key=lambda rr: tuple(rr[m] for m in objectives))
         return rows
+
+
+# ---------------------------------------------------------------------------
+# The session: cache owner + execution planner.
+# ---------------------------------------------------------------------------
+
+# The engine's kernels on the card, by name: K1a and K1b
+_ENGINE_KERNELS = {"engine_reg": _k1.engine_reg_cuda,
+                   "engine_l1": _k1.engine_l1_cuda}
+
+
+def _engine_launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _ENGINE_KERNELS.items()}
+
+
+class Session:
+    """Owns every sweep-side cache and executes :class:`Sweep` specs.
+
+    * *built* kernels, keyed (name, build params);
+    * *prepared* traces (expanded + folded / truncated), keyed (name,
+      params, fold, max_events, fold warm-up — a function of the static L1
+      geometry only);
+    * the fold / refine policy (``refine`` transparently re-simulates
+      uncertified folds without folding when the full trace is affordable);
+    * accounting for every engine call it issued: ``dispatch_count()``
+      (``simulate_grid`` calls), ``launch_count()`` (K1a and K1b launches
+      on the card), and the host seconds spent preparing traces and in
+      engine calls (``prepare_seconds()``, ``engine_seconds()``).
+
+    ``device`` is where the engine runs: ``"cuda"`` (the default) launches
+    K1 and raises without a card; ``"cpu"`` runs K1's plain twin.
+    ``batch_programs=None`` picks the device's default: one fused call for
+    every program of a geometry on the card, one program at a time on the
+    CPU (the twin walks each program's rows itself, so nothing is gained
+    by batching there).
+    """
+
+    def __init__(self, fold: bool = True, refine: bool = True,
+                 refine_max_rows: int = REFINE_MAX_ROWS,
+                 batch_programs: bool | None = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.fold = fold
+        self.refine = refine
+        self.refine_max_rows = refine_max_rows
+        if batch_programs is None:
+            batch_programs = self.device.type == "cuda"
+        self.batch_programs = batch_programs
+        self.history: list[dict] = []
+        self._built: dict = {}
+        self._prepared: dict = {}
+        self._reset_counts()
+
+    def _reset_counts(self) -> None:
+        self._dispatches = 0
+        self._launches = dict.fromkeys(_ENGINE_KERNELS, 0)
+        self._prepare_s = 0.0
+        self._engine_s = 0.0
+
+    # -- caches -----------------------------------------------------------
+
+    @staticmethod
+    def _build_params(bench, params):
+        if params == "paper":
+            return dict(bench.paper_params)
+        if params == "reduced":
+            return dict(bench.reduced_params)
+        if isinstance(params, dict):
+            return dict(params)
+        raise ValueError(
+            f"kernel_params must be 'paper', 'reduced' or a dict of build "
+            f"kwargs, got {params!r}")
+
+    def built(self, name: str, params: str | dict = "paper"):
+        """Build (and cache) one benchmark kernel at the requested size."""
+        from repro_torch import rvv
+        bench = rvv.get_benchmark(name)
+        kw = self._build_params(bench, params)
+        key = (name, tuple(sorted(kw.items())))
+        if key not in self._built:
+            self._built[key] = bench.build(**kw)
+        return self._built[key]
+
+    def prepared(self, name: str, fold: bool | None = None,
+                 max_events: int | None = None,
+                 machine=DEFAULT_MACHINE,
+                 params: str | dict = "paper") -> simulator.PreparedTrace:
+        """Expanded (+folded / truncated) trace per benchmark, cached.
+
+        The fold warm-up is a function of the static L1 geometry only
+        (``machine.l1_sets`` / ``l1_ways``), so it is part of the cache key;
+        the latency values never are.
+        """
+        from repro_torch import rvv
+        if fold is None:
+            fold = self.fold
+        if max_events is not None:
+            fold = False                  # truncation is the legacy mode
+        warm = folding.warm_lines_for(machine.l1_sets, machine.l1_ways)
+        kw = self._build_params(rvv.get_benchmark(name), params)
+        # Unfolded preparations never read the warm-up, so they are shared
+        # across L1 geometries instead of duplicated per geometry.
+        key = (name, tuple(sorted(kw.items())), fold, max_events,
+               warm if fold else None)
+        if key not in self._prepared:
+            program = self.built(name, params).program
+            t0 = time.perf_counter()
+            self._prepared[key] = simulator.prepare(
+                program, fold=fold, max_events=max_events, warm_lines=warm)
+            self._prepare_s += time.perf_counter() - t0
+        return self._prepared[key]
+
+    def reset(self) -> None:
+        """Drop every cache and counter."""
+        self._built.clear()
+        self._prepared.clear()
+        self.history.clear()
+        self._reset_counts()
+
+    # -- accounting -------------------------------------------------------
+
+    def dispatch_count(self) -> int:
+        """Engine calls (``simulate_grid``) this session issued."""
+        return self._dispatches
+
+    def launch_count(self) -> dict[str, int]:
+        """K1a (``engine_reg``) and K1b (``engine_l1``) launches this
+        session's engine calls made (0 on the CPU)."""
+        return dict(self._launches)
+
+    def prepare_seconds(self) -> float:
+        """Host seconds this session spent preparing traces."""
+        return self._prepare_s
+
+    def engine_seconds(self) -> float:
+        """Host seconds this session spent in engine calls, the device's
+        work included (each call returns its counters on the host)."""
+        return self._engine_s
+
+    def _simulate(self, preps, config, machine):
+        l0 = _engine_launches()
+        t0 = time.perf_counter()
+        out = simulator.simulate_grid(preps, config, machine,
+                                      batch_programs=self.batch_programs,
+                                      device=self.device)
+        self._engine_s += time.perf_counter() - t0
+        self._dispatches += 1
+        for name, n in _engine_launches().items():
+            self._launches[name] += n - l0[name]
+        return out
+
+    def _refine(self, names, out, config, machine, params) -> None:
+        """Re-simulate, in place, every program whose fold certificate
+        failed at any grid point and whose full trace is affordable."""
+        if "fold_exact" not in out:
+            return
+        for pi, name in enumerate(names):
+            if out["fold_exact"][pi].all():
+                continue
+            rows = self.built(name, params).program.num_instructions
+            if rows > self.refine_max_rows:
+                continue
+            sub = self._simulate(
+                [self.prepared(name, fold=False, machine=machine,
+                               params=params)], config, machine)
+            for k in out:
+                out[k][pi] = sub[k][0] if k != "fold_exact" else True
+
+    # -- execution --------------------------------------------------------
+
+    def grid(self, names, config: SweepConfig, machine=DEFAULT_MACHINE,
+             fold: bool | None = None, max_events: int | None = None,
+             refine: bool | None = None,
+             params: str | dict = "paper") -> dict[str, np.ndarray]:
+        """The legacy-shaped sweep call: P named kernels x a flat (C,)
+        config axis (x M machine points when ``machine`` is a
+        :class:`MachineSweep`), returning raw counter arrays.  Prefer
+        :meth:`run` with a declarative :class:`Sweep`; this is the engine
+        room it and the ``benchmarks.common`` shim share.
+        """
+        if fold is None:
+            fold = self.fold
+        if refine is None:
+            refine = self.refine
+        names = list(names)
+        preps = [self.prepared(n, fold=fold, max_events=max_events,
+                               machine=machine, params=params)
+                 for n in names]
+        out = self._simulate(preps, config, machine)
+        if fold and refine:
+            self._refine(names, out, config, machine, params)
+        return out
+
+    def run(self, sweep: Sweep) -> SweepResult:
+        """Execute a declarative sweep.
+
+        Planning: one engine call per L1 geometry with every kernel of
+        the sweep in it (fused into one K1 call on the card, program by
+        program on the CPU) and the whole latency grid riding along;
+        uncertified folds are then refined per geometry exactly as
+        :meth:`grid` does, one more engine call per refined program.
+        """
+        fold = self.fold if sweep.fold is None else sweep.fold
+        if sweep.max_events is not None:
+            fold = False
+        names = list(sweep.kernels)
+        config = sweep.config()
+        d0, l0 = self._dispatches, dict(self._launches)
+        p0, e0 = self._prepare_s, self._engine_s
+        plan = []
+        per_geo = []
+        for geo in sweep.l1_geometry:
+            machines = sweep.machine_sweep(geo)
+            preps = [self.prepared(n, fold=fold,
+                                   max_events=sweep.max_events,
+                                   machine=machines,
+                                   params=sweep.kernel_params)
+                     for n in names]
+            out = self._simulate(preps, config, machines)
+            plan.append(dict(l1_geometry=str(geo), kernels=list(names),
+                             fused=bool(self.batch_programs)))
+            out.setdefault("fold_exact", np.ones(out["cycles"].shape, bool))
+            if fold and self.refine:
+                self._refine(names, out, config, machines,
+                             sweep.kernel_params)
+            per_geo.append(out)
+        axes = sweep.axes()
+        if sweep.config_points is not None:
+            cshape = (len(sweep.config_points),)
+        else:
+            cshape = (len(sweep.capacity), len(sweep.policy),
+                      len(sweep.alloc_no_fetch))
+        mshape = (len(sweep.mem_latency), len(sweep.l1_hit_cycles),
+                  len(sweep.uop_hit_cycles))
+        data = {}
+        for k in per_geo[0]:
+            stacked = np.stack([g[k] for g in per_geo])      # (G, P, C, M)
+            g, p = stacked.shape[:2]
+            stacked = stacked.reshape((g, p) + cshape + mshape)
+            # geometry moves to its canonical slot: after the config axes.
+            data[k] = np.moveaxis(stacked, 0, 1 + len(cshape))
+        meta = dict(
+            plan=plan,
+            dispatches=self._dispatches - d0,
+            launches={k: n - l0[k] for k, n in self._launches.items()},
+            device=str(self.device),
+            prepare_s=self._prepare_s - p0,
+            engine_s=self._engine_s - e0,
+            points=int(np.prod([len(a) for a in axes])),
+            axes={a.name: [str(v) if a.name in ("l1_geometry", "config")
+                           else v for v in a.values] for a in axes},
+            kernel_params=(sweep.kernel_params
+                           if isinstance(sweep.kernel_params, str)
+                           else dict(sweep.kernel_params)),
+            fold=fold,
+        )
+        self.history.append(meta)
+        return SweepResult(axes, data, meta)
+
+
+# ---------------------------------------------------------------------------
+# Process-default session + the raw-program front door.
+# ---------------------------------------------------------------------------
+
+
+_DEFAULT_SESSION: Session | None = None
+
+
+def default_session() -> Session:
+    """The process-default Session the benchmark layer shares (on the
+    card: ``Session()``)."""
+    global _DEFAULT_SESSION
+    if _DEFAULT_SESSION is None:
+        _DEFAULT_SESSION = Session()
+    return _DEFAULT_SESSION
+
+
+def reset_default_session(**session_kw) -> Session:
+    """Replace the process-default Session with a fresh one, made with
+    ``session_kw`` (for example ``device="cpu"``)."""
+    global _DEFAULT_SESSION
+    _DEFAULT_SESSION = Session(**session_kw)
+    return _DEFAULT_SESSION
+
+
+def sweep_program(program_or_events, config: SweepConfig,
+                  machine=DEFAULT_MACHINE, fold: bool = False,
+                  max_events: int | None = None,
+                  device="cuda") -> dict[str, np.ndarray]:
+    """Sweep one raw Program / EventStream / PreparedTrace over a flat
+    config axis — the front door for traces that are not registered
+    kernels (the deprecated ``simulator.simulate_sweep`` delegates here).
+    Returns (C,)-shaped counter arrays, (C, M)-shaped under a
+    :class:`MachineSweep`."""
+    prep = simulator.prepare(program_or_events, fold=fold,
+                             max_events=max_events, machine=machine)
+    out = simulator.simulate_grid([prep], config, machine, device=device)
+    return {k: v[0] for k, v in out.items()}

@@ -20,12 +20,16 @@ machine) lane, is ``kernels/engine_scan.py``: K1, a hand-written CUDA
 kernel, on the card (the default of every entry point here), and its
 plain-torch twin on the CPU (``device="cpu"``).  The reference's
 ``compile_count``/``dispatch_count`` are XLA notions with no counterpart;
-the port's probe is K1's launch count (``engine_scan_cuda.launches``).
+the port's probes are K1a's and K1b's launch counts
+(``engine_reg_cuda.launches``, ``engine_l1_cuda.launches``) and the
+engine calls a ``repro_torch.api.Session`` counts.  The deprecated
+:func:`simulate_sweep` delegates to ``repro_torch.api.sweep_program``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -383,6 +387,24 @@ def simulate_grid(preps: list, sweep: SweepConfig,
         np.asarray([p.event_scale for p in preps]).reshape(per_prog),
         grid_shape).copy()
     return out
+
+
+def simulate_sweep(program_or_events, sweep: SweepConfig,
+                   machine=DEFAULT_MACHINE,
+                   max_events: int | None = None,
+                   fold: bool = False, device="cuda") -> dict[str, np.ndarray]:
+    """Deprecated: use :func:`repro_torch.api.sweep_program` (one raw
+    program) or a :class:`repro_torch.api.Session` running a declarative
+    ``Sweep`` (named kernels).  This shim delegates to ``api`` and returns
+    the same dict of (C,)-shaped — (C, M)-shaped under a
+    :class:`MachineSweep` — counter arrays the old entry point produced."""
+    warnings.warn(
+        "simulator.simulate_sweep is deprecated; use "
+        "repro_torch.api.sweep_program (or Session.run with a declarative "
+        "Sweep) instead", DeprecationWarning, stacklevel=2)
+    from repro_torch import api  # runtime import: api sits above the core
+    return api.sweep_program(program_or_events, sweep, machine=machine,
+                             fold=fold, max_events=max_events, device=device)
 
 
 def simulate_one(program, capacity, policy=policies.FIFO,
