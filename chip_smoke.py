@@ -6,9 +6,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. build     compile every CUDA kernel of the port from src/ (nvcc,
                sm_90a), one nvcc per source, all started together, print
-               flash_tc's and rmsnorm_vec's registers and spills, and hold
-               dispersed_gemm.tc_plan, flash_attention.flash_plan and
-               rmsnorm.rmsnorm_plan against the built kernels' tiles;
+               flash_tc's, rmsnorm_vec's and K2's registers and spills,
+               and hold dispersed_gemm.tc_plan, flash_attention.flash_plan,
+               rmsnorm.rmsnorm_plan, engine_scan_plan and
+               cluster_scan_plan against the built kernels' tiles;
   2. kernels   hold each kernel against its plain-torch twin on the card at
                the main paths' shapes and a few edge shapes: K5 flash
                attention (bf16 on the tensor-core route: causal and not,
@@ -61,6 +62,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the reference's own check; K1a and K1b launched and no
                plain engine function called; the report written to
                chiprun_out/paper_report.json;
+     cluster   the cluster (P4) with K2, the cluster scan: K2 against the
+               split's plain versions, bitwise (N = 1, 2, 4, 8 behind five
+               shared memories, on the reduced programs and on the
+               cluster suites' paper inputs cut to 2,048 rows), the N = 1
+               passthrough against K1; then cluster_sweep and dse through
+               repro_torch.benchmarks.run at paper size through the same
+               Session, every numeric field of their 180 rows (1,692
+               values) and their fronts and summaries held exactly to
+               BENCH_core.json (plan-group provenance aside), per suite
+               its wall, prepare and engine seconds, engine calls, K1a,
+               K1b and K2 launches, K1's and K2's device ms and K2's
+               largest bucket; K1a, K1b and K2 launched and no plain
+               version of the engine run; K2 timed alone on
+               cluster_sweep's 4 KB grid (per kernel, beside its bound
+               and its longest chain);
   4. prefill   full-width phi3-mini-3.8b (random weights from a seeded
                generator): Model.prefill on 4 x 512 tokens with the flash
                kernel vs the plain sdpa path, counting kernel launches (all
@@ -100,6 +116,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -112,14 +129,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.benchmarks import roofline, vmem_dispersion  # noqa: E402
+from repro_torch.benchmarks import (cluster_sweep, dse, roofline,  # noqa: E402
+                                    vmem_dispersion)
 from repro_torch.benchmarks import run as bench_run  # noqa: E402
-from repro_torch.benchmarks.engine_timing import KERNEL_NAMES  # noqa: E402
+from repro_torch.benchmarks.engine_timing import (KERNEL_NAMES,  # noqa: E402
+                                                   _per_kernel_ms)
 from repro_torch import api, rvv  # noqa: E402
+from repro_torch.cluster import ClusterConfig  # noqa: E402
+from repro_torch.cluster import engine as cluster_engine  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.core import (events, interpreter, isa, policies,  # noqa: E402
                               simulator)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import cluster_scan as cs  # noqa: E402
 from repro_torch.kernels import engine_scan as es  # noqa: E402
 from repro_torch.kernels import dispersed_gemm as dg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -537,6 +559,21 @@ def check_engine_plan() -> None:
             engine_scan_plan_agrees=built == plan)
         check(built == plan, f"engine_scan_plan {plan} != the built "
               f"kernels' {built} at {m.l1_sets} x {m.l1_ways}")
+
+
+def check_cluster_plan() -> None:
+    """cluster_scan.cluster_scan_plan's tile (K2) against the built
+    kernel's (cluster_scan_tile) for the shared memories [cluster] runs
+    (the suites' 256 x 4 L2 is the widest)."""
+    clusters = [cluster_sweep.CLUSTER] + _check_clusters()
+    plan = cs.cluster_scan_plan(16, 2, [1], ([3], [0], [False]), clusters,
+                                strides=[1], invariant=[True])
+    ways = max(c.l2_ways for c in clusters if c.l2_sets)
+    built = cs.built_tile(plan["l2_sets"], ways)
+    log("build", cluster_scan_tile=f"{plan['l2_sets']}x{ways}", **built,
+        cluster_scan_plan_agrees=built == plan["tile"])
+    check(built == plan["tile"], f"cluster_scan_plan {plan['tile']} != the "
+          f"built kernel's {built}")
 
 
 def phase_norm_kernels() -> tuple[float, dict]:
@@ -1029,6 +1066,8 @@ def _engine_grid(session, programs, names, sweep, machine, preps,
 
 ENGINE_KERNELS = {"engine_reg": es.engine_reg_cuda,
                   "engine_l1": es.engine_l1_cuda}
+# The cluster's kernels: K1a, K1b and K2
+CLUSTER_KERNELS = dict(ENGINE_KERNELS, cluster_l2=cs.cluster_l2_cuda)
 
 
 def phase_engine(session, programs) -> dict:
@@ -1142,31 +1181,35 @@ HELD_SUITES = {"table3": 22, "pareto": 75, "policy_headroom": 36,
 # pathfinder's fig4 row at capacity 3
 FIG4_PATHFINDER_CAP3 = dict(norm_perf="0.5683", hit_rate="0.5",
                             spills="741", fills="868")
-# The engine's plain versions, which must not run on the card's path
-PLAIN_ENGINE = ("engine_scan_plain", "engine_split_plain",
-                "engine_reg_plain", "engine_l1_plain")
+# The engine's plain versions, which must not run on the card's path, by
+# the module that holds each: K1's and K2's
+PLAIN_ENGINE = {"engine_scan_plain": es, "engine_split_plain": es,
+                "engine_reg_plain": es, "engine_l1_plain": es,
+                "cluster_scan_plain": cs, "cluster_split_plain": cs,
+                "cluster_l2_plain": cs}
 
 
 @contextlib.contextmanager
 def plain_engine_calls():
     """Count the calls of the engine's plain versions while the block
-    runs (they are looked up by name in kernels/engine_scan.py, so a
-    counting wrapper there sees every call)."""
+    runs (they are looked up by name in kernels/engine_scan.py and
+    kernels/cluster_scan.py, so a counting wrapper there sees every
+    call)."""
     calls = dict.fromkeys(PLAIN_ENGINE, 0)
-    saved = {name: getattr(es, name) for name in PLAIN_ENGINE}
+    saved = {name: getattr(mod, name) for name, mod in PLAIN_ENGINE.items()}
 
     def counted(name):
         def call(*args, **kw):
             calls[name] += 1
             return saved[name](*args, **kw)
         return call
-    for name in PLAIN_ENGINE:
-        setattr(es, name, counted(name))
+    for name, mod in PLAIN_ENGINE.items():
+        setattr(mod, name, counted(name))
     try:
         yield calls
     finally:
         for name, fn in saved.items():
-            setattr(es, name, fn)
+            setattr(PLAIN_ENGINE[name], name, fn)
 
 
 def _csv_rows(text: str, first_field: str) -> list[dict]:
@@ -1183,14 +1226,18 @@ def _csv_rows(text: str, first_field: str) -> list[dict]:
     return rows
 
 
-def _engine_device_ms(prof) -> float | None:
-    """K1's device ms in a profiler window: the engine kernels' summed
-    device time (None where the profiler recorded none)."""
+def _engine_device_ms(prof, names=KERNEL_NAMES, exclude=None
+                      ) -> float | None:
+    """The engine kernels' summed device ms in a profiler window: K1's
+    by default (KERNEL_NAMES; ``exclude`` leaves out K2's, whose exclusive
+    scan shares K1b's names), K2's with K2_KERNEL_NAMES; None where the
+    profiler recorded none."""
     total = 0.0
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0) or getattr(
             e, "cuda_time_total", 0)
-        if us and KERNEL_NAMES.search(e.key):
+        if us and names.search(e.key) and not (
+                exclude and exclude.search(e.key)):
             total += us / 1e3
     return total or None
 
@@ -1293,6 +1340,353 @@ def phase_paper(session) -> dict:
         plain_calls=plain)
     return dict(suites=per_suite, held=held, seconds=seconds,
                 launches=launches)
+
+
+# ----------------------------------------------------------------- cluster --
+
+# The cluster suites [cluster] runs through repro_torch.benchmarks.run at
+# paper size, and the numeric fields of their rows BENCH_core.json holds
+# (us_per_call, the wall clock, aside): 10 x 72 and 9 x 108 values
+CLUSTER_ROW_FIELDS = {
+    "cluster_sweep": ("aggregate_throughput", "cluster_area",
+                      "contention_stall_ratio", "contention_stalls",
+                      "core_cycles_sum", "cycles", "l2_hits", "l2_misses",
+                      "scaled_cycles", "sram_budget_bytes"),
+    "dse": ("area_flop", "area_sram6t", "area_table", "cycles",
+            "energy_flop", "energy_sram6t", "energy_table", "fold_exact",
+            "scaled_cycles")}
+# The rows' axis labels, which locate a row
+CLUSTER_ROW_KEYS = ("name", "capacity", "l1_kb", "cores")
+# The summaries and fronts held too; their rows' plan-group provenance
+# (the reference's shape bucket and group index, and whether the engine
+# call was fused) differs on purpose and is left out
+CLUSTER_EXTRA_HELD = {
+    "cluster_sweep": ("fold_exact_fraction", "iso_budget_front",
+                      "iso_area_front"),
+    "dse": ("fold_exact_fraction", "fronts", "fronts_2d",
+            "iso_area_winners", "external_baseline")}
+CLUSTER_PROVENANCE = ("plan_group", "bucket", "fused")
+# K2 against the split's plain versions: these core counts behind these
+# shared memories (the default, the passthrough, no L2 on two channels,
+# the suites' 256 x 4 L2 on two channels, an odd 32 x 3 on three)
+CLUSTER_CHECK_CORES = (1, 2, 4, 8)
+K2_KERNEL_NAMES = re.compile(
+    r"cluster_(misses|bucket|walk|arbiter|finish)|scan_(sums|blocks|apply)<1>")
+
+
+def _check_clusters() -> list:
+    return [c for n in CLUSTER_CHECK_CORES for c in (
+        ClusterConfig(n_cores=n), ClusterConfig.passthrough(n),
+        ClusterConfig(n_cores=n, l2_sets=0, mem_channels=2),
+        ClusterConfig(n_cores=n, l2_sets=256, l2_ways=4, mem_channels=2),
+        ClusterConfig(n_cores=n, l2_sets=32, l2_ways=3, mem_channels=3))]
+
+
+def _cluster_inputs(preps, sweep, machines):
+    """simulate_clusters' inputs to the cluster scan over ``preps``."""
+    x, spill0s, cfg, mach, kw = _engine_inputs(preps, sweep, machines)
+    return x, spill0s, [cluster_engine._stride(p) for p in preps], cfg, \
+        mach, kw
+
+
+def time_k2(x, spill0s, strides, cfg, mach, clusters, kw) -> dict:
+    """K2 alone on the card: per launch group K1a and K1b once (K1b's
+    buffers kept), then K2's device time (CUDA events, ENGINE_ITERS calls
+    after a warm-up), its bucketed requests and largest (lane, L2 set)
+    bucket, and its bound: the larger of K1b's records (8 bytes) and
+    outcomes (1 byte) read once with the per-core counters written once,
+    over HBM, and ENGINE_OPS_PER_WAY operations on each L2 way per
+    bucketed request over the CUDA cores' peak; and one call's device ms
+    per kernel."""
+    lengths = kw["lengths"]
+    plan = cs.cluster_scan_plan(
+        kw["l1_sets"], kw["l1_ways"], lengths, cfg, clusters,
+        strides=strides, invariant=cs.address_invariant(
+            x, spill0s, strides, lengths, max(c.n_cores for c in clusters)),
+        T=x.shape[1])
+    out = dict(groups=len(plan["groups"]), ms=0.0, requests=0,
+               largest_bucket=0, records=0, k2_lanes=0, per_kernel_ms={})
+    nbytes, ops = 0, 0
+    sets = 3 if kw["track_ab"] else 1
+    ways = max((c.l2_ways for c in clusters if c.l2_sets), default=0)
+    for g in plan["groups"]:
+        stream, ctr = _no_stream(x)
+        if g["reg_lanes"]:
+            prog, k = map(list, zip(*g["reg_lanes"]))
+            stream, ctr = es.engine_reg_cuda(
+                x, prog, tuple(np.asarray(a)[k] for a in cfg),
+                track_ab=kw["track_ab"], lengths=lengths)
+        l1_prog, _, l1_reg, l1_base = map(list, zip(*g["l1_lanes"]))
+        k1_outs, keep = es.engine_l1_cuda(
+            x, spill0s, stream, ctr, l1_prog, l1_reg,
+            [j for _, _, j in g["k1_outputs"]], mach, l1_sets=kw["l1_sets"],
+            l1_ways=kw["l1_ways"], track_ab=kw["track_ab"], lengths=lengths,
+            l1_base=l1_base, keep=True)
+        stats = {}
+
+        def call(stats=None):
+            return cs.cluster_l2_cuda(
+                x, keep, g, k1_outs, mach, clusters, l1_sets=kw["l1_sets"],
+                track_ab=kw["track_ab"], lengths=lengths, stats=stats)
+        call(stats)
+        out["ms"] += cuda_ms(call, warmup=1, iters=ENGINE_ITERS)
+        for name, ms in _per_kernel_ms(call, K2_KERNEL_NAMES).items():
+            out["per_kernel_ms"][name] = out["per_kernel_ms"].get(
+                name, 0.0) + ms
+        records = int(keep["hist"][-1])
+        out["records"] += records
+        out["requests"] += stats["bucketed_requests"]
+        out["largest_bucket"] = max(out["largest_bucket"],
+                                    stats["largest_bucket"])
+        out["k2_lanes"] += len(g["k2_lanes"])
+        per_core = sum(len(q1s) for *_, q1s in g["k2_outputs"])
+        nbytes += (records * 9 + sets * per_core * len(mach[0])
+                   * cs.CLUSTER_COUNTERS * 4)
+        ops += ENGINE_OPS_PER_WAY * ways * stats["bucketed_requests"]
+        del keep
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops, torch.float32)
+    out["ns_per_chain_step"] = (out["ms"] * 1e6 / out["largest_bucket"]
+                                if out["largest_bucket"] else None)
+    return out
+
+
+def check_cluster_kernel(label, preps, sweep, machines, clusters,
+                         depth=None) -> dict:
+    """The cluster on the card (cluster_scan_cuda: K1a, K1b, K2) against
+    the split's plain versions on the host's CPU (engine_l1_plain then
+    cluster_l2_plain, as cluster_split_plain runs them, fed K1a's cVRF
+    pass from the card: K1a is held to engine_reg_plain by [engine] on
+    these reduced programs, and its plain version would take most of the
+    check's time) on the same inputs, every cluster point, all three
+    counter sets of all 15 per-core counters, bitwise; the plain
+    versions' host ms (K2's own apart) and K2's device ms on those
+    inputs.  ``depth`` cuts each trace to its first rows."""
+    if depth is not None:
+        preps = [simulator._slice_prep(p, min(p.num_rows, depth))
+                 for p in preps]
+    x_cpu, spill0s, strides, cfg, mach, kw = _cluster_inputs(
+        preps, sweep, machines)
+    x = x_cpu.cuda()
+    k2_plain_s = [0.0]
+
+    def card_reg(_, prog, reg_cfg, **kwargs):
+        return tuple(t.cpu() for t in es.engine_reg_cuda(x, prog, reg_cfg,
+                                                         **kwargs))
+
+    def timed_l2(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = cs.cluster_l2_plain(*args, **kwargs)
+        k2_plain_s[0] += time.perf_counter() - t0
+        return out
+    t0 = time.perf_counter()
+    want = cs._cluster_run(x_cpu, spill0s, strides, cfg, mach, clusters,
+                           reg_fn=card_reg, l1_fn=es.engine_l1_plain,
+                           k2_fn=timed_l2, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = cs.cluster_scan_cuda(x, spill0s, strides, cfg, mach, clusters,
+                               **kw)
+    torch.cuda.synchronize()
+    err = 0
+    for cl, w, g in zip(clusters, want, got):
+        for a, b, name in zip(w, g, ("ctr", "ctr_a", "ctr_b")):
+            diff = _max_diff(b, a)
+            err = max(err, diff)
+            check(diff == 0, f"cluster {label}: K2 {name} differs from the "
+                  f"split's plain versions by up to {diff} at {cl}")
+    k2 = time_k2(x, spill0s, strides, cfg, mach, clusters, kw)
+    out = dict(programs=len(preps), rows=max(kw["lengths"]),
+               configs=len(sweep), machines=len(machines),
+               clusters=len(clusters), max_abs_err=err,
+               plain_ms=plain_ms, k2_plain_ms=k2_plain_s[0] * 1e3,
+               k2_ms=k2["ms"], k2_lanes=k2["k2_lanes"],
+               k2_largest_bucket=k2["largest_bucket"])
+    log("cluster", check=label, equal=True, **out)
+    return dict(out, x=x, inputs=(spill0s, strides, cfg, mach, kw), got=got)
+
+
+@contextlib.contextmanager
+def k2_buckets():
+    """K2's largest (lane, L2 set) bucket over the launches made while
+    the block runs: cluster_l2_cuda is looked up by name in
+    kernels/cluster_scan.py, so a wrapper there asks each launch for its
+    bucket sizes (one synchronisation a launch).  The wrapper lends the
+    wrapped function's ``count``, which the function reaches by that
+    name, so the launches still count where they did."""
+    seen = dict(largest_bucket=0, bucketed_requests=0)
+    wrapped = cs.cluster_l2_cuda
+
+    def call(*args, **kw):
+        stats = {}
+        out = wrapped(*args, stats=stats, **kw)
+        seen["largest_bucket"] = max(seen["largest_bucket"],
+                                     stats["largest_bucket"])
+        seen["bucketed_requests"] += stats["bucketed_requests"]
+        return out
+    call.count = wrapped.count
+    cs.cluster_l2_cuda = call
+    try:
+        yield seen
+    finally:
+        cs.cluster_l2_cuda = wrapped
+
+
+def _held_rows(label, got, want, fields) -> tuple[int, list]:
+    """Every field of every BENCH_core.json row against the run's row at
+    the same labels: equal ints, and floats equal as Python floats."""
+    index = {tuple(r[k] for k in CLUSTER_ROW_KEYS): r for r in got}
+    held, wrong = 0, []
+    check(len(got) == len(want), f"{label}: {len(got)} rows, "
+          f"BENCH_core.json {len(want)}")
+    for w in want:
+        g = index.get(tuple(w[k] for k in CLUSTER_ROW_KEYS))
+        check(g is not None, f"{label}: no row for {w}")
+        for f in fields:
+            if type(g[f]) is not type(w[f]) or g[f] != w[f]:
+                wrong.append(f"{label} {[w[k] for k in CLUSTER_ROW_KEYS]} "
+                             f"{f}: {g[f]!r} != {w[f]!r}")
+            else:
+                held += 1
+    return held, wrong
+
+
+def _without_provenance(v):
+    if isinstance(v, dict):
+        return {k: _without_provenance(x) for k, x in v.items()
+                if k not in CLUSTER_PROVENANCE}
+    if isinstance(v, list):
+        return [_without_provenance(x) for x in v]
+    return v
+
+
+def phase_cluster(session) -> dict:
+    """The cluster (P4) with K2 on the card.  K2 against the split's plain
+    versions (bitwise, every cluster point of _check_clusters(): N = 1,
+    2, 4, 8 behind five shared memories) on the [engine] twin check's
+    reduced inputs (every rvv program, CONF_POINTS' configs and
+    machines), and on the cluster suites' paper inputs cut to
+    ENGINE_CHECK_ROWS rows; the N = 1 passthrough equal to K1's counters
+    on the card.  Then the main path: cluster_sweep and dse through
+    repro_torch.benchmarks.run in this process at paper size, through
+    ``session``, each under torch.profiler: every numeric field of every
+    row held exactly to BENCH_core.json (720 and 972 values), their
+    summaries and fronts too (provenance aside); K1a, K1b and K2 launched,
+    no plain version of the engine run.  Last, K2 alone on cluster_sweep's
+    4 KB grid (its largest bucket, device ms, bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    clusters = _check_clusters()
+    built = {n: b.build(**b.reduced_params).program
+             for n, b in rvv.BENCHMARKS.items()}
+    sweep = simulator.SweepConfig(
+        np.asarray([c for c, _, _ in CONF_POINTS], np.int32),
+        np.asarray([p for _, p, _ in CONF_POINTS], np.int32),
+        np.zeros(len(CONF_POINTS), bool))
+    machines = simulator.MachineSweep.from_params(
+        [m for _, _, m in CONF_POINTS])
+    reduced = check_cluster_kernel(
+        "reduced", [simulator.prepare(p) for p in built.values()], sweep,
+        machines, clusters)
+    # The passthrough identity: one core, no L2, no queue -> K1's counters
+    x = reduced.pop("x")
+    spill0s, strides, cfg, mach, kw = reduced.pop("inputs")
+    k1 = es.engine_scan_cuda(x, spill0s, cfg, mach, **kw)
+    i1 = clusters.index(ClusterConfig.passthrough(1))
+    got = reduced.pop("got")[i1]
+    diff = max(_max_diff(g[..., 0, :es.NUM_COUNTERS], k) for g, k in zip(
+        got, k1))
+    log("cluster", check="passthrough_n1_vs_k1", equal=diff == 0)
+    check(diff == 0, f"cluster: passthrough(1) differs from K1 by {diff}")
+    del x
+
+    bench = json.loads((ROOT / "BENCH_core.json").read_text())["suites"]
+    paper_cut = {}
+    for suite, mod in (("cluster_sweep", cluster_sweep), ("dse", dse)):
+        kb = mod.L1_KBYTES[0]
+        m = _l1_machine(kb)
+        sw = simulator.SweepConfig.make(mod.CAPS)
+        cl = [dataclasses.replace(mod.CLUSTER, n_cores=n) for n in mod.CORES]
+        paper_cut[suite] = check_cluster_kernel(
+            f"{suite}_{kb}kb_first_{ENGINE_CHECK_ROWS}_rows",
+            [session.prepared(n, fold=True, machine=m) for n in mod.KERNELS],
+            sw, simulator.MachineSweep.from_params([m]), cl,
+            depth=ENGINE_CHECK_ROWS)
+        for key in ("x", "inputs", "got"):
+            paper_cut[suite].pop(key)
+
+    for fn in CLUSTER_KERNELS.values():
+        fn.launches = 0
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    per_suite, held, wrong = {}, 0, []
+    t_main = time.perf_counter()
+    with plain_engine_calls() as plain:
+        for suite in CLUSTER_ROW_FIELDS:
+            path = out_dir / f"cluster_{suite}.json"
+            text = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                    contextlib.redirect_stdout(text), k2_buckets() as k2b:
+                rc = bench_run.main(["--json", str(path), suite],
+                                    session=session)
+                torch.cuda.synchronize()
+            check(rc == 0, f"cluster: run.py {suite} exited {rc}")
+            rec = json.loads(path.read_text())["suites"][suite]
+            want = bench[suite]["extra"]
+            h, w = _held_rows(suite, rec["extra"]["rows"], want["rows"],
+                              CLUSTER_ROW_FIELDS[suite])
+            held += h
+            wrong += w
+            for key in CLUSTER_EXTRA_HELD[suite]:
+                if _without_provenance(rec["extra"][key]) != \
+                        _without_provenance(want[key]):
+                    wrong.append(f"{suite} extra.{key}")
+            per_suite[suite] = dict(
+                rows=rec["rows"], wall_s=rec["wall_s"],
+                prepare_s=rec["prepare_s"], engine_s=rec["engine_s"],
+                dispatches=rec["dispatches"], launches=rec["launches"],
+                plan_groups=rec["extra"]["plan_groups"],
+                fold_exact_fraction=rec["extra"]["fold_exact_fraction"],
+                k1_device_ms=_engine_device_ms(prof, exclude=K2_KERNEL_NAMES),
+                k2_device_ms=_engine_device_ms(prof, K2_KERNEL_NAMES),
+                k2_largest_bucket=k2b["largest_bucket"],
+                k2_bucketed_requests=k2b["bucketed_requests"],
+                held=h, profiled_s=round(time.perf_counter() - t0, 3))
+            log("cluster", suite=suite, **per_suite[suite])
+    main_s = time.perf_counter() - t_main
+    launches = {name: fn.launches for name, fn in CLUSTER_KERNELS.items()}
+    want_held = sum(len(bench[s]["extra"]["rows"]) * len(f)
+                    for s, f in CLUSTER_ROW_FIELDS.items())
+    log("cluster", held_to_bench=held, want=want_held,
+        equal=not wrong and held == want_held, launches=launches,
+        plain_calls=plain, main_path_s=round(main_s, 2))
+    check(not wrong, f"cluster: values differ from BENCH_core.json: "
+          f"{wrong[:20]}")
+    check(held == want_held, f"cluster: held {held} values, want "
+          f"{want_held}")
+    check(all(launches.values()), f"cluster: a kernel of the main path was "
+          f"never launched: {launches}")
+    check(not any(plain.values()), f"cluster: a plain version of the "
+          f"engine ran on the card's path: {plain}")
+
+    # K2 alone on cluster_sweep's 4 KB grid at paper size (outside the
+    # counted run): every program, capacity and core count in one call
+    m4 = _l1_machine(cluster_sweep.L1_KBYTES[0])
+    x_cpu, spill0s, strides, cfg, mach, kw = _cluster_inputs(
+        [session.prepared(n, fold=True, machine=m4)
+         for n in cluster_sweep.KERNELS],
+        simulator.SweepConfig.make(cluster_sweep.CAPS),
+        simulator.MachineSweep.from_params([m4]))
+    timing = time_k2(x_cpu.cuda(), spill0s, strides, cfg, mach,
+                     [dataclasses.replace(cluster_sweep.CLUSTER, n_cores=n)
+                      for n in cluster_sweep.CORES], kw)
+    log("cluster", timing="cluster_sweep_4kb_folded", **timing)
+    seconds = time.perf_counter() - t_phase
+    log("cluster", seconds=round(seconds, 2))
+    return dict(reduced=reduced, paper_cut=paper_cut, suites=per_suite,
+                held=held, launches=launches, timing=timing,
+                main_path_s=main_s, seconds=seconds)
 
 
 # ----------------------------------------------------------------- prefill --
@@ -1836,6 +2230,36 @@ def engine_entry(name, part, at, engine, twin) -> dict:
         timing=engine["timing"], paper_suites=engine["paper"]["suites"])
 
 
+def cluster_entry(cluster) -> dict:
+    """The kernels line's record of K2: its launches in the [cluster]
+    main path (the two suites at paper size, the values they held to
+    BENCH_core.json, each suite's figures), the largest |kernel - plain|
+    of its checks, its device time, bound and longest chain (the
+    requests of its largest (lane, L2 set) bucket) on cluster_sweep's 4 KB
+    grid, and its plain version's host time where its own time was also
+    taken: the reduced check's inputs."""
+    t, r = cluster["timing"], cluster["reduced"]
+    return dict(
+        name="cluster_l2", route="cuda",
+        source="src/repro_torch/kernels/csrc/cluster_scan.cu",
+        replaces="src/repro/cluster/engine.py:74",
+        launches=cluster["launches"]["cluster_l2"],
+        launches_by_path={"cluster": cluster["launches"]["cluster_l2"]},
+        max_abs_err=max([r["max_abs_err"]] + [
+            c["max_abs_err"] for c in cluster["paper_cut"].values()]),
+        timing_input="cluster_sweep_4kb_folded", ms=t["ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        chain="requests of the largest (lane, L2 set) bucket",
+        chain_steps=t["largest_bucket"],
+        ns_per_chain_step=t["ns_per_chain_step"],
+        plain_ms=r["k2_plain_ms"], plain_device="cpu",
+        plain_inputs=dict(programs=r["programs"], rows=r["rows"],
+                          clusters=r["clusters"], k2_lanes=r["k2_lanes"]),
+        ms_at_plain_inputs=r["k2_ms"], library_ms=None,
+        held_to_bench=cluster["held"], timing=t,
+        cluster_suites=cluster["suites"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1866,10 +2290,13 @@ def main() -> int:
         log("build", **entry)
     for entry in ptxas_summary(logs["engine_scan"], "engine_scan"):
         log("build", **entry)
+    for entry in ptxas_summary(logs["cluster_scan"], "cluster_"):
+        log("build", **entry)
     check_tc_plan()
     check_flash_plan()
     check_norm_plan()
     check_engine_plan()
+    check_cluster_plan()
 
     flash_err = phase_kernels()
     gemm_errs = phase_gemm_kernels()
@@ -1887,9 +2314,12 @@ def main() -> int:
     check(all(paper_launches.values()) and paper_launches == paper[
         "launches"], f"paper: K1 launches {paper_launches}, the report's "
           f"{paper['launches']}")
+    cluster = phase_cluster(session)
     engine["launches_by_path"] = {
         name: {"engine": engine["launches"][name],
-               "paper": paper_launches[name]} for name in ENGINE_KERNELS}
+               "paper": paper_launches[name],
+               "cluster": cluster["launches"][name]}
+        for name in ENGINE_KERNELS}
     engine["paper"] = paper
     del session
 
@@ -1973,6 +2403,7 @@ def main() -> int:
                      engine_twin),
         engine_entry("engine_l1", "l1", "resnet50_l10_unfolded", engine,
                      engine_twin),
+        cluster_entry(cluster),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

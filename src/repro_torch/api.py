@@ -10,15 +10,20 @@ is a point grid over the same named axes:
   ``alloc_no_fetch``  beyond-paper write-allocate optimisation
   ``l1_geometry``   static L1 shape (:class:`L1Geometry`): each value is
                     its own engine call
+  ``cores``         cluster size: N lockstep cores behind a shared L2
+                    (with a :class:`repro_torch.cluster.ClusterConfig`
+                    template, ``cluster``)
   ``mem_latency`` / ``l1_hit_cycles`` / ``uop_hit_cycles``
                     machine-latency axes, per-lane inputs of every call
 
 A :class:`Sweep` declares values for those axes; a :class:`Session`
 executes it.  ``Session.run`` plans one engine call per L1 geometry
 (:func:`repro_torch.core.simulator.simulate_grid`: K1, the engine scan,
-on the card; its plain twin with ``device="cpu"``), with every kernel of
-the sweep and the whole latency grid in it, and refines each uncertified
-fold the reference's way.  The result is a :class:`SweepResult` with
+on the card; its plain twin with ``device="cpu"``; for a cluster sweep
+:func:`repro_torch.cluster.simulate_clusters`, K1 then K2, the cluster
+scan), with every kernel of the sweep, every ``cores`` value and the
+whole latency grid in it, and refines each uncertified fold the
+reference's way.  The result is a :class:`SweepResult` with
 labeled axes, per-point counters and per-point ``fold_exact``
 certificates, plus ``to_rows()`` / ``select()`` / ``value()`` accessors
 and the metric algebra (``derive`` / ``normalize`` / ``pareto``,
@@ -30,14 +35,18 @@ Where the port differs from the reference, on purpose:
     request for it without one raises; there is no fallback to the CPU;
   * K1 walks each program's own rows, so the plan has no shape buckets
     (the reference's padding buckets for XLA): its entries carry
-    ``l1_geometry``, ``kernels`` and ``fused``;
+    ``l1_geometry``, ``kernels`` and ``fused`` (and ``cores`` in a
+    cluster sweep);
   * XLA's compile count has no counterpart: ``dispatch_count()`` counts
-    the ``simulate_grid`` calls the Session made (refines included) and
-    ``launch_count()`` the K1a/K1b launches they caused (0 on the CPU);
-    a run's ``meta`` carries ``dispatches`` and ``launches``, no
+    the engine calls the Session made (refines included) and
+    ``launch_count()`` the K1a/K1b/K2 launches they caused (0 on the
+    CPU); a run's ``meta`` carries ``dispatches`` and ``launches``, no
     ``compiles``;
-  * the ``network`` axis (the bridge) and the ``cores``/``cluster`` axes
-    (the cluster engine) are not ported yet and raise
+  * a cluster sweep makes one engine call per L1 geometry for all its
+    ``cores`` values (K1 runs once for them: a core's single-core
+    counters do not depend on the core count); its plan entries, one per
+    (geometry, cores), name that call (``engine_call``);
+  * the ``network`` axis (the bridge) is not ported yet and raises
     ``NotImplementedError``.
 
 The Session owns the caches: built kernels and prepared (expanded +
@@ -52,10 +61,12 @@ import time
 
 import numpy as np
 
+from repro_torch.cluster import ClusterConfig, simulate_clusters
 from repro_torch.core import folding, policies, simulator
 from repro_torch.core.simulator import (DEFAULT_MACHINE, MachineSweep,
                                         SweepConfig)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import cluster_scan as _k2
 from repro_torch.kernels import engine_scan as _k1
 
 __all__ = [
@@ -212,11 +223,14 @@ class Sweep:
     the legacy truncation budget (forces ``fold`` off) — kept as an explicit
     escape hatch for smoke runs; prefer folding.
 
-    ``network`` (models lowered through the bridge) and ``cores`` /
-    ``cluster`` (N dispersion cores behind a shared L2) are the
-    reference's further axes; the port has neither the bridge nor the
-    cluster engine yet, so any value other than the defaults raises
-    ``NotImplementedError``.
+    ``cores`` and ``cluster`` add the cluster axis: N lockstep
+    dispersion cores behind the shared L2 and memory channels of the
+    ``cluster`` template (:class:`repro_torch.cluster.ClusterConfig`,
+    default: no L2, one channel), run by the cluster engine; the result
+    gains a ``cores`` axis after ``l1_geometry`` and the cluster counters,
+    with ``cycles`` the makespan.  ``network`` (models lowered through
+    the bridge) is the reference's further axis; the port has no bridge
+    yet, so any value raises ``NotImplementedError``.
     """
 
     kernels: tuple[str, ...] = ()
@@ -242,11 +256,6 @@ class Sweep:
             raise NotImplementedError(
                 "the network axis is not ported yet: it needs the bridge "
                 "(ROADMAP: P6)")
-        fix(self, "cores", tuple(int(n) for n in _as_tuple(self.cores)))
-        if self.cores != (1,) or self.cluster is not None:
-            raise NotImplementedError(
-                "the cores and cluster axes are not ported yet: they need "
-                "the cluster engine (ROADMAP: P4, with K2)")
         fix(self, "kernels", tuple(_as_tuple(self.kernels)))
         if not self.kernels:
             raise ValueError("Sweep needs at least one kernel name")
@@ -267,6 +276,27 @@ class Sweep:
             tuple(int(m) for m in _as_tuple(self.uop_hit_cycles)))
         fix(self, "l1_geometry",
             tuple(_as_geometry(g) for g in _as_tuple(self.l1_geometry)))
+        fix(self, "cores", tuple(int(n) for n in _as_tuple(self.cores)))
+        if any(n < 1 for n in self.cores):
+            raise ValueError(f"cores values must be >= 1, got {self.cores}")
+        if self.cluster is not None:
+            if not isinstance(self.cluster, ClusterConfig):
+                raise TypeError(
+                    f"cluster must be a repro_torch.cluster.ClusterConfig, "
+                    f"got {self.cluster!r}")
+
+    @property
+    def is_cluster(self) -> bool:
+        """True when this sweep runs the cluster engine (a non-trivial
+        ``cores`` axis or an explicit shared-memory ``cluster`` template)."""
+        return self.cores != (1,) or self.cluster is not None
+
+    def cluster_config(self, n_cores: int):
+        """The :class:`repro_torch.cluster.ClusterConfig` for one ``cores``
+        point: the ``cluster`` template with its ``n_cores`` overridden
+        (default template: no shared L2, one memory channel)."""
+        base = self.cluster if self.cluster is not None else ClusterConfig()
+        return dataclasses.replace(base, n_cores=int(n_cores))
 
     # -- derived engine inputs -------------------------------------------
 
@@ -296,8 +326,9 @@ class Sweep:
             cfg_axes = (Axis("capacity", self.capacity),
                         Axis("policy", self.policy),
                         Axis("alloc_no_fetch", self.alloc_no_fetch))
+        core_axes = (Axis("cores", self.cores),) if self.is_cluster else ()
         return ((Axis("kernel", self.kernels),) + cfg_axes
-                + (Axis("l1_geometry", self.l1_geometry),)
+                + (Axis("l1_geometry", self.l1_geometry),) + core_axes
                 + (Axis("mem_latency", self.mem_latency),
                    Axis("l1_hit_cycles", self.l1_hit_cycles),
                    Axis("uop_hit_cycles", self.uop_hit_cycles)))
@@ -681,9 +712,10 @@ class SweepResult:
 # The session: cache owner + execution planner.
 # ---------------------------------------------------------------------------
 
-# The engine's kernels on the card, by name: K1a and K1b
+# The engine's kernels on the card, by name: K1a, K1b and K2
 _ENGINE_KERNELS = {"engine_reg": _k1.engine_reg_cuda,
-                   "engine_l1": _k1.engine_l1_cuda}
+                   "engine_l1": _k1.engine_l1_cuda,
+                   "cluster_l2": _k2.cluster_l2_cuda}
 
 
 def _engine_launches() -> dict[str, int]:
@@ -700,9 +732,10 @@ class Session:
     * the fold / refine policy (``refine`` transparently re-simulates
       uncertified folds without folding when the full trace is affordable);
     * accounting for every engine call it issued: ``dispatch_count()``
-      (``simulate_grid`` calls), ``launch_count()`` (K1a and K1b launches
-      on the card), and the host seconds spent preparing traces and in
-      engine calls (``prepare_seconds()``, ``engine_seconds()``).
+      (``simulate_grid`` and ``simulate_clusters`` calls),
+      ``launch_count()`` (K1a, K1b and K2 launches on the card), and the
+      host seconds spent preparing traces and in engine calls
+      (``prepare_seconds()``, ``engine_seconds()``).
 
     ``device`` is where the engine runs: ``"cuda"`` (the default) launches
     K1 and raises without a card; ``"cpu"`` runs K1's plain twin.
@@ -796,12 +829,14 @@ class Session:
     # -- accounting -------------------------------------------------------
 
     def dispatch_count(self) -> int:
-        """Engine calls (``simulate_grid``) this session issued."""
+        """Engine calls (``simulate_grid``, ``simulate_clusters``) this
+        session issued."""
         return self._dispatches
 
     def launch_count(self) -> dict[str, int]:
-        """K1a (``engine_reg``) and K1b (``engine_l1``) launches this
-        session's engine calls made (0 on the CPU)."""
+        """K1a (``engine_reg``), K1b (``engine_l1``) and K2
+        (``cluster_l2``) launches this session's engine calls made (0 on
+        the CPU)."""
         return dict(self._launches)
 
     def prepare_seconds(self) -> float:
@@ -813,17 +848,29 @@ class Session:
         work included (each call returns its counters on the host)."""
         return self._engine_s
 
-    def _simulate(self, preps, config, machine):
+    def _counted(self, engine, *args, **kw):
+        """One engine call, with its seconds, dispatch and launches
+        counted."""
         l0 = _engine_launches()
         t0 = time.perf_counter()
-        out = simulator.simulate_grid(preps, config, machine,
-                                      batch_programs=self.batch_programs,
-                                      device=self.device)
+        out = engine(*args, batch_programs=self.batch_programs,
+                     device=self.device, **kw)
         self._engine_s += time.perf_counter() - t0
         self._dispatches += 1
         for name, n in _engine_launches().items():
             self._launches[name] += n - l0[name]
         return out
+
+    def _simulate(self, preps, config, machine):
+        return self._counted(simulator.simulate_grid, preps, config,
+                             machine)
+
+    def _simulate_cluster(self, preps, config, machine, clusters):
+        """One cluster-engine call for every cluster point of
+        ``clusters`` (one per ``cores`` value), with the accounting of
+        :meth:`_simulate`: one dispatch, K1 shared by the points."""
+        return self._counted(simulate_clusters, preps, config, machine,
+                             clusters)
 
     def _refine(self, names, out, config, machine, params) -> None:
         """Re-simulate, in place, every program whose fold certificate
@@ -841,6 +888,31 @@ class Session:
                                params=params)], config, machine)
             for k in out:
                 out[k][pi] = sub[k][0] if k != "fold_exact" else True
+
+    def _refine_cluster(self, names, out, config, machine, sweep) -> None:
+        """Cluster analogue of :meth:`_refine`: re-simulate, unfolded and
+        per failing ``cores`` point, every program whose cluster fold
+        certificate failed (the shared L2 can break a period alignment
+        that holds single-core, so certificates are per (kernel, cores))."""
+        if "fold_exact" not in out:
+            return
+        for pi, name in enumerate(names):
+            if out["fold_exact"][pi].all():
+                continue
+            rows = self.built(
+                name, sweep.kernel_params).program.num_instructions
+            if rows > self.refine_max_rows:
+                continue
+            prep = self.prepared(name, fold=False, machine=machine,
+                                 params=sweep.kernel_params)
+            for ki, n in enumerate(sweep.cores):
+                if out["fold_exact"][pi, ki].all():
+                    continue
+                (sub,) = self._simulate_cluster(
+                    [prep], config, machine, [sweep.cluster_config(n)])
+                for k in out:
+                    out[k][pi, ki] = sub[k][0] if k != "fold_exact" \
+                        else True
 
     # -- execution --------------------------------------------------------
 
@@ -875,6 +947,13 @@ class Session:
         program on the CPU) and the whole latency grid riding along;
         uncertified folds are then refined per geometry exactly as
         :meth:`grid` does, one more engine call per refined program.
+
+        Cluster sweeps (:attr:`Sweep.is_cluster`) put every ``cores``
+        value in that one call (K1 once, then K2 per cluster point);
+        the plan gets one entry per (geometry, cores), each naming its
+        ``engine_call``, uncertified folds are refined per (kernel,
+        cores), and the result grid gains the cluster counters with
+        ``cycles`` as the cluster makespan and ``meta["cluster"]``.
         """
         fold = self.fold if sweep.fold is None else sweep.fold
         if sweep.max_events is not None:
@@ -883,22 +962,37 @@ class Session:
         config = sweep.config()
         d0, l0 = self._dispatches, dict(self._launches)
         p0, e0 = self._prepare_s, self._engine_s
+        cluster_mode = sweep.is_cluster
         plan = []
         per_geo = []
-        for geo in sweep.l1_geometry:
+        for gi, geo in enumerate(sweep.l1_geometry):
             machines = sweep.machine_sweep(geo)
             preps = [self.prepared(n, fold=fold,
                                    max_events=sweep.max_events,
                                    machine=machines,
                                    params=sweep.kernel_params)
                      for n in names]
-            out = self._simulate(preps, config, machines)
-            plan.append(dict(l1_geometry=str(geo), kernels=list(names),
-                             fused=bool(self.batch_programs)))
+            entry = dict(l1_geometry=str(geo), kernels=list(names),
+                         fused=bool(self.batch_programs))
+            if cluster_mode:
+                subs = self._simulate_cluster(
+                    preps, config, machines,
+                    [sweep.cluster_config(n) for n in sweep.cores])
+                plan += [dict(entry, cores=n, engine_call=gi)
+                         for n in sweep.cores]
+                out = {k: np.stack([s[k] for s in subs], axis=1)
+                       for k in subs[0]}             # (P, K, C, M)
+            else:
+                out = self._simulate(preps, config, machines)
+                plan.append(entry)
             out.setdefault("fold_exact", np.ones(out["cycles"].shape, bool))
             if fold and self.refine:
-                self._refine(names, out, config, machines,
-                             sweep.kernel_params)
+                if cluster_mode:
+                    self._refine_cluster(names, out, config, machines,
+                                         sweep)
+                else:
+                    self._refine(names, out, config, machines,
+                                 sweep.kernel_params)
             per_geo.append(out)
         axes = sweep.axes()
         if sweep.config_points is not None:
@@ -910,11 +1004,21 @@ class Session:
                   len(sweep.uop_hit_cycles))
         data = {}
         for k in per_geo[0]:
-            stacked = np.stack([g[k] for g in per_geo])      # (G, P, C, M)
-            g, p = stacked.shape[:2]
-            stacked = stacked.reshape((g, p) + cshape + mshape)
-            # geometry moves to its canonical slot: after the config axes.
-            data[k] = np.moveaxis(stacked, 0, 1 + len(cshape))
+            if cluster_mode:
+                # (G, P, K, C, M) -> geometry and cores move to their
+                # canonical slots after the config axes.
+                stacked = np.stack([g[k] for g in per_geo])
+                g, p, kc = stacked.shape[:3]
+                stacked = stacked.reshape((g, p, kc) + cshape + mshape)
+                data[k] = np.moveaxis(
+                    stacked, (0, 2), (1 + len(cshape), 2 + len(cshape)))
+            else:
+                stacked = np.stack([g[k] for g in per_geo])  # (G, P, C, M)
+                g, p = stacked.shape[:2]
+                stacked = stacked.reshape((g, p) + cshape + mshape)
+                # geometry moves to its canonical slot: after the config
+                # axes.
+                data[k] = np.moveaxis(stacked, 0, 1 + len(cshape))
         meta = dict(
             plan=plan,
             dispatches=self._dispatches - d0,
@@ -930,6 +1034,12 @@ class Session:
                            else dict(sweep.kernel_params)),
             fold=fold,
         )
+        if cluster_mode:
+            cl0 = sweep.cluster_config(1)
+            meta["cluster"] = dict(
+                cores=list(sweep.cores), l2_sets=cl0.l2_sets,
+                l2_ways=cl0.l2_ways, mem_channels=cl0.mem_channels,
+                l2_hit_cycles=cl0.l2_hit_cycles, l2_bytes=cl0.l2_bytes)
         self.history.append(meta)
         return SweepResult(axes, data, meta)
 

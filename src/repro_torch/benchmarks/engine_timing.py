@@ -57,8 +57,9 @@ KERNEL_NAMES = re.compile(
     r"|scan_apply|l1_walk|l1_reduce|l1_finish)(<[^>]*>)?")
 
 
-def _per_kernel_ms(fn) -> dict:
-    """Device ms per CUDA kernel (and memset) over one call of ``fn``."""
+def _per_kernel_ms(fn, names=KERNEL_NAMES) -> dict:
+    """Device ms per CUDA kernel (and memset) over one call of ``fn``,
+    each kernel named by its match of ``names``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -70,7 +71,7 @@ def _per_kernel_ms(fn) -> dict:
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0) or getattr(
             e, "cuda_time_total", 0)
-        m = KERNEL_NAMES.search(e.key)
+        m = names.search(e.key)
         name = m.group(0) if m else e.key[:40]
         if us:
             out[name] = out.get(name, 0.0) + us / 1e3

@@ -12,9 +12,9 @@ roofline and the working-set study.  Prints one CSV block per suite.
 default; without a card the run raises) or ``cpu`` (K1's plain twin and
 the kernels' plain versions: reduced budgets only).  ``--kernels a,b``
 restricts every suite whose ``main()`` takes a kernel list
-(table3/fig4/fig5/fig6/fig8/pareto) to that subset; fixed-roster studies
-(fig2, policy_headroom, ablation_sensitivity, ...) run their own set and
-say so.  ``--max-events N`` forwards the legacy truncation budget the same
+(table3/fig4/fig5/fig6/fig8/pareto/cluster_sweep/dse) to that subset;
+fixed-roster studies (fig2, policy_headroom, ablation_sensitivity, ...)
+run their own set and say so.  ``--max-events N`` forwards the legacy truncation budget the same
 way.
 
 ``--json PATH`` writes the reference's report layout (``schema: 7``):
@@ -24,15 +24,15 @@ registry catalog (``metrics``), the silicon macro catalog
 (``macro_models``) and per-kernel cycle counts (``kernels``, keyed as
 the reference keys them).  Where the port's record differs: a suite has
 no ``compiles`` (an XLA notion); ``dispatches`` counts the Session's
-engine calls, ``launches`` the K1a (``engine_reg``) and K1b
-(``engine_l1``) launches they made (the roofline adds its kernels'
+engine calls, ``launches`` the K1a (``engine_reg``), K1b
+(``engine_l1``) and K2 (``cluster_l2``) launches they made (the roofline adds its kernels'
 launches from ``perf_stats()``), ``prepare_s``/``engine_s`` the host
 seconds spent preparing traces and in engine calls, and ``device`` names
 where it ran.  The roofline's ``json_extra()`` is its record's ``extra``.
 
-The reference's ``kv_dispersion``, ``serving_slo``, ``network_sweep``,
-``cluster_sweep`` and ``dse`` suites are not ported yet: asking for one
-exits 2 with the ROADMAP item that brings it.
+The reference's ``kv_dispersion``, ``serving_slo`` and ``network_sweep``
+suites are not ported yet: asking for one exits 2 with the ROADMAP item
+that brings it.
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ _MODULES = {
     "vmem_dispersion": "repro_torch.benchmarks.vmem_dispersion",
     "ablation_sensitivity": "repro_torch.benchmarks.ablation_sensitivity",
     "roofline": "repro_torch.benchmarks.roofline",
+    "cluster_sweep": "repro_torch.benchmarks.cluster_sweep",
+    "dse": "repro_torch.benchmarks.dse",
 }
 
 SUITES = tuple(_MODULES)
@@ -68,8 +70,6 @@ NOT_PORTED = {
     "kv_dispersion": "P5 (the remaining model families and serving)",
     "serving_slo": "P5 (the remaining model families and serving)",
     "network_sweep": "P6 (the bridge)",
-    "cluster_sweep": "P4 (the cluster, with K2)",
-    "dse": "P4 (the cluster, with K2)",
 }
 
 _CYCLE_KEYS = ("vec_cycles", "scalar_cycles", "fifo_cycles",

@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -70,6 +72,7 @@ constexpr int NCTR = 12;            // simulator.COUNTER_NAMES
 constexpr int TILE_ROWS = 1024;     // K1b: rows a bucketing warp takes
 constexpr int HIST_WARPS = 4;       // K1b: bucketing warps in a CTA
 constexpr int SCAN_BLOCK = 1024;    // K1b: entries a scan CTA takes
+static_assert(SCAN_BLOCK == excl_scan::BLOCK, "scan.cuh's CTA");
 constexpr int WALK_THREADS = 128;   // K1b: walkers in a CTA
 constexpr int WALK_BATCH = 16;      // K1b: records a walker loads ahead
 constexpr int PER_THREAD = CHUNK * NCOL / 32;
@@ -280,6 +283,7 @@ struct L1Args {
   int* ctr;                   // (Q, M, NCTR): total, period A, period B
   int* ctrA;
   int* ctrB;
+  const int* l1_base;         // (L,) line shift of each lane, or null: 0
 };
 
 __device__ __forceinline__ int floor_mod(int v, int m) {
@@ -288,22 +292,23 @@ __device__ __forceinline__ int floor_mod(int v, int m) {
 }
 
 // Access slot k of rows [t0, ...) of K1b lane j: its row, site, line and
-// write flag; false where the site is inactive.
-__device__ __forceinline__ bool access_at(const L1Args& a, int p, int r,
-                                          int nsites, long long t0, int k,
-                                          long long& t, int& site, int& line,
-                                          int& write) {
+// write flag; false where the site is inactive.  Lines wrap as int32.
+__device__ __forceinline__ bool access_at(const L1Args& a, int j, int p,
+                                          int r, int nsites, long long t0,
+                                          int k, long long& t, int& site,
+                                          int& line, int& write) {
   t = t0 + k / nsites;
   site = nsites == SITES ? k % SITES : REG_SITES + k % 2;
+  const unsigned base = a.l1_base ? (unsigned)a.l1_base[j] : 0u;
   if (site < REG_SITES) {
     const int reg = a.stream[((size_t)r * a.T + t) * REG_SITES + site];
-    line = (int)((unsigned)a.spill0[p] + (unsigned)reg);
+    line = (int)((unsigned)a.spill0[p] + (unsigned)reg + base);
     write = (site & 1) == 0;          // a spill writes, a fill reads
     return reg >= 0;
   }
   const int* row = a.rows + ((size_t)p * a.T + t) * NCOL;
   const int m = site - REG_SITES;
-  line = row[ML + m];
+  line = (int)((unsigned)row[ML + m] + base);
   write = row[MW + m] != 0;
   return row[MV + m] != 0;
 }
@@ -376,7 +381,8 @@ __global__ void __launch_bounds__(HIST_WARPS * 32) l1_bucket(L1Args a) {
     long long t = 0;
     int site = 0, line = 0, write = 0;
     const bool on = k < slots &&
-                    access_at(a, p, r, nsites, t0, k, t, site, line, write);
+                    access_at(a, j, p, r, nsites, t0, k, t, site, line,
+                              write);
     const int s = on ? floor_mod(line, a.sets) : 0;
     if (!SCATTER) {
       if (on) atomicAdd(&cnt[s], 1u);
@@ -398,85 +404,6 @@ __global__ void __launch_bounds__(HIST_WARPS * 32) l1_bucket(L1Args a) {
     __syncwarp();
     for (int s = lane; s < a.sets; s += 32)
       a.hist[hbase + (size_t)s * a.tiles] = cnt[s];
-  }
-}
-
-// Exclusive scan of n entries in three passes: per-CTA sums, a scan of
-// the sums in one CTA, then each CTA's entries with its offset.
-__device__ unsigned block_exclusive_scan(unsigned v, unsigned& total) {
-  __shared__ unsigned warp_sums[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned inc = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned u = __shfl_up_sync(FULL, inc, o);
-    if (lane >= o) inc += u;
-  }
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    unsigned w = lane < nw ? warp_sums[lane] : 0u;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned u = __shfl_up_sync(FULL, w, o);
-      if (lane >= o) w += u;
-    }
-    warp_sums[lane] = w;               // inclusive over warps
-  }
-  __syncthreads();
-  total = warp_sums[(blockDim.x >> 5) - 1];
-  const unsigned before = warp ? warp_sums[warp - 1] : 0u;
-  __syncthreads();
-  return before + inc - v;
-}
-
-constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_ITEMS = SCAN_BLOCK / SCAN_THREADS;
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-    scan_sums(const unsigned* v, long long n, unsigned* blocks) {
-  const long long b0 = (long long)blockIdx.x * SCAN_BLOCK;
-  unsigned s = 0;
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long k = b0 + threadIdx.x * SCAN_ITEMS + i;
-    if (k < n) s += v[k];
-  }
-  unsigned total;
-  block_exclusive_scan(s, total);
-  if (threadIdx.x == 0) blocks[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(1024)
-    scan_blocks(unsigned* blocks, int nb, unsigned* total_out) {
-  unsigned carry = 0;
-  for (int b0 = 0; b0 < nb; b0 += 1024) {
-    const int k = b0 + threadIdx.x;
-    const unsigned v = k < nb ? blocks[k] : 0u;
-    unsigned total;
-    const unsigned ex = block_exclusive_scan(v, total);
-    if (k < nb) blocks[k] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *total_out = carry;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-    scan_apply(unsigned* v, long long n, const unsigned* blocks) {
-  const long long b0 = (long long)blockIdx.x * SCAN_BLOCK;
-  unsigned item[SCAN_ITEMS];
-  unsigned s = 0;
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long k = b0 + threadIdx.x * SCAN_ITEMS + i;
-    item[i] = k < n ? v[k] : 0u;
-    s += item[i];
-  }
-  unsigned total;
-  unsigned run = blocks[blockIdx.x] + block_exclusive_scan(s, total);
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long k = b0 + threadIdx.x * SCAN_ITEMS + i;
-    if (k < n) v[k] = run;
-    run += item[i];
   }
 }
 
@@ -663,12 +590,8 @@ cudaError_t launch_l1(const L1Args& a, long long records, cudaStream_t s) {
   l1_bucket<false><<<bucket_ctas, HIST_WARPS * 32, smem, s>>>(a);
   if ((err = cudaGetLastError())) return err;
 
-  const long long n = warps * a.sets;
-  const int nb = (int)((n + SCAN_BLOCK - 1) / SCAN_BLOCK);
-  scan_sums<<<nb, SCAN_THREADS, 0, s>>>(a.hist, n, a.blocks);
-  scan_blocks<<<1, 1024, 0, s>>>(a.blocks, nb, a.hist + n);
-  scan_apply<<<nb, SCAN_THREADS, 0, s>>>(a.hist, n, a.blocks);
-  if ((err = cudaGetLastError())) return err;
+  if ((err = excl_scan::launch<0>(a.hist, warps * a.sets, a.blocks, s)))
+    return err;
 
   l1_bucket<true><<<bucket_ctas, HIST_WARPS * 32, smem, s>>>(a);
   if ((err = cudaGetLastError())) return err;
@@ -749,9 +672,10 @@ extern "C" int engine_reg_launch(const int* rows, int P, long long T,
 // (L * sets * tiles + 1), blocks (one per SCAN_BLOCK hist entries), recs
 // (records x 2), outcome (records bytes), l1sum (L, NSETS, NL1), tsum (P,
 // NSETS, NTR); ctr, ctr_a, ctr_b: (Q, M, 12) int32 (ctr_a/ctr_b written
-// only when track_ab).  Returns -1 for what the kernels do not take, else
-// the launches' cudaError_t (0 on success); runs on `stream` and does not
-// synchronise.
+// only when track_ab); l1_base: (L,) each lane's line shift (a cluster
+// core's address colour), or null for none.  Returns -1 for what the
+// kernels do not take, else the launches' cudaError_t (0 on success); runs
+// on `stream` and does not synchronise.
 extern "C" int engine_l1_launch(
     const int* rows, int P, long long T, const int* lengths,
     const int* spill0, const signed char* stream, const int* reg_ctr, int L,
@@ -759,7 +683,8 @@ extern "C" int engine_l1_launch(
     const int* l1h, const int* uop, const int* mem, int sets, int ways,
     int track_ab, int NP, const int* tprog, long long records, int* hist,
     int* blocks, int* recs, unsigned char* outcome, int* l1sum, int* tsum,
-    int* ctr, int* ctr_a, int* ctr_b, void* cuda_stream) {
+    int* ctr, int* ctr_a, int* ctr_b, const int* l1_base,
+    void* cuda_stream) {
   int tile[9];
   if (engine_scan_tile(sets, ways, tile) || T >= MAX_ROWS ||
       records >= (1LL << 31))
@@ -775,7 +700,8 @@ extern "C" int engine_l1_launch(
                  reinterpret_cast<unsigned*>(blocks),
                  reinterpret_cast<int2*>(recs), outcome,
                  reinterpret_cast<unsigned*>(l1sum),
-                 reinterpret_cast<unsigned*>(tsum), ctr, ctr_a, ctr_b};
+                 reinterpret_cast<unsigned*>(tsum), ctr, ctr_a, ctr_b,
+                 l1_base};
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   return (int)(track_ab ? launch_l1<true>(a, records, s)
                         : launch_l1<false>(a, records, s));

@@ -193,13 +193,23 @@ def _grid_lanes(P: int, cfg, mach, device):
 
 
 def engine_scan_plain(x, spill0s, cfg, mach, *, l1_sets: int,
-                      l1_ways: int, track_ab: bool = True, lengths=None):
+                      l1_ways: int, track_ab: bool = True, lengths=None,
+                      cores: int | None = None, strides=None,
+                      row_hook=None, width: int = NUM_COUNTERS):
     """The engine in plain torch: the reference's ``_make_step`` /
     ``_make_body`` with the P x C x M lanes flattened onto one batch
     dimension, one Python iteration per instruction row.  The CPU path
     and the kernel's oracle; it costs one to a few milliseconds a row on
     a CPU, so it serves reduced-size traces.  Returns ``(ctr, ctr_a, ctr_b)``,
     (P, C, M, 12) int32 each.
+
+    ``cores`` runs N cores of a cluster per (program, config, machine)
+    lane, core n's spill and data lines shifted by ``n * strides[p]``
+    (wrapping as int32), each with its own cVRF and L1; ``row_hook(t,
+    inc, miss)`` then takes each row's (lanes, 12) increments and its
+    (lanes, 8) L1-missed lines (-1 where a site hit or was inactive) and
+    returns the (lanes, ``width``) increments to count, and the counters
+    are (P, C, M, N, ``width``).
 
     Its tensors are a few thousand elements, too small to share among
     threads, so it runs with one intra-op thread: torch's other threads
@@ -209,21 +219,32 @@ def engine_scan_plain(x, spill0s, cfg, mach, *, l1_sets: int,
     try:
         return _scan_rows(x, spill0s, cfg, mach, l1_sets=l1_sets,
                           l1_ways=l1_ways, track_ab=track_ab,
-                          lengths=lengths)
+                          lengths=lengths, cores=cores, strides=strides,
+                          row_hook=row_hook, width=width)
     finally:
         torch.set_num_threads(threads)
 
 
 def _scan_rows(x, spill0s, cfg, mach, *, l1_sets, l1_ways, track_ab,
-               lengths):
+               lengths, cores, strides, row_hook, width):
     P, T, ncol = x.shape
     if ncol != NCOL:
         raise ValueError(f"x has {ncol} columns, want {NCOL}")
     dev = x.device
     (p_of, cap, pol, anf, hit_d, hit_u, lat, C, M) = _grid_lanes(
         P, cfg, mach, dev)
-    B = P * C * M
-    sp0 = torch.as_tensor(spill0s, dtype=torch.int32, device=dev)[p_of]
+    N = cores or 1
+    p_of, cap, pol, anf, hit_d, hit_u, lat = (
+        a.repeat_interleave(N) for a in (p_of, cap, pol, anf, hit_d, hit_u,
+                                         lat))
+    B = P * C * M * N
+    base = torch.zeros(B, dtype=torch.long, device=dev)
+    if cores:
+        base = torch.arange(N, device=dev).repeat(P * C * M) * torch.as_tensor(
+            strides, device=dev).to(torch.long)[p_of]
+    sp0 = _wrap32(torch.as_tensor(spill0s, device=dev).to(torch.long)[p_of]
+                  + base).to(torch.int32)
+    mem_base = _wrap32(base).to(torch.int32)
     walk = T if lengths is None else int(max(lengths, default=0))
     full = cap >= NUM_ARCH_VREGS
     nfull = ~full
@@ -232,7 +253,7 @@ def _scan_rows(x, spill0s, cfg, mach, *, l1_sets, l1_ways, track_ab,
     cache = policies.CacheState.init(NUM_ARCH_VREGS, B, dev)
     l1 = l1_init(B, l1_sets, l1_ways, dev)
     seq = torch.zeros(B, dtype=torch.int32, device=dev)
-    ctr = torch.zeros((B, NUM_COUNTERS), dtype=torch.int32, device=dev)
+    ctr = torch.zeros((B, width), dtype=torch.int32, device=dev)
     ctr_a, ctr_b = torch.zeros_like(ctr), torch.zeros_like(ctr)
     yes = torch.ones(B, dtype=torch.bool, device=dev)
     no = ~yes
@@ -250,6 +271,8 @@ def _scan_rows(x, spill0s, cfg, mach, *, l1_sets, l1_ways, track_ab,
         # (int32) and event flags (bool), summed into `inc` at the end.
         cyc = [(CYCLES, xr[COST])]
         flags = []
+        miss_lines = torch.full((B, SITES), -1, dtype=torch.int32,
+                                device=dev) if row_hook else None
         for s in range(3):
             if not live[t][s]:
                 continue
@@ -275,15 +298,19 @@ def _scan_rows(x, spill0s, cfg, mach, *, l1_sets, l1_ways, track_ab,
                            if s == 2 else miss)
                 # Spill the evictee to its reserved line, then fill the
                 # missing register: both uops through the L1.
-                for do, line, is_w, ctr_k in (
-                        (do_spill, vrow[:, policies.TAG], True, SPILLS),
-                        (do_fill, rg, False, FILLS)):
+                for site, do, line, is_w, ctr_k in (
+                        (2 * s, do_spill, vrow[:, policies.TAG], True,
+                         SPILLS),
+                        (2 * s + 1, do_fill, rg, False, FILLS)):
                     if bool(do.any()):
-                        c, h = l1_access(l1, sp0 + line.clamp(min=0), is_w,
-                                         now, do, hit_u, lat)
+                        line = sp0 + line.clamp(min=0)
+                        c, h = l1_access(l1, line, is_w, now, do, hit_u, lat)
                         cyc += [(CYCLES, c), (STALL, c)]
                         flags += [(ctr_k, do), (L1_HITS, do & h),
                                   (L1_MISSES, do & ~h)]
+                        if row_hook:
+                            miss_lines[:, site] = torch.where(do & ~h, line,
+                                                              -1)
                 flags.append((MISSES, miss))
             touch = active & nfull
             if bool(touch.any()):
@@ -300,8 +327,12 @@ def _scan_rows(x, spill0s, cfg, mach, *, l1_sets, l1_ways, track_ab,
                 continue
             active = xr[MV + m] != 0
             is_w = xr[MW + m] != 0
-            c, h = l1_access(l1, xr[ML + m], is_w, _i32(now0 + 3 + m),
-                             active, hit_d, lat)
+            line = xr[ML + m] + mem_base
+            c, h = l1_access(l1, line, is_w, _i32(now0 + 3 + m), active,
+                             hit_d, lat)
+            if row_hook:
+                miss_lines[:, REG_SITES + m] = torch.where(active & ~h, line,
+                                                           -1)
             cyc.append((CYCLES, c))
             flags += [(L1_HITS, active & h), (L1_MISSES, active & ~h),
                       (MEM_READS, active & ~is_w),
@@ -312,11 +343,13 @@ def _scan_rows(x, spill0s, cfg, mach, *, l1_sets, l1_ways, track_ab,
                 k, v = zip(*terms)
                 inc.index_add_(1, torch.tensor(k, device=dev),
                                torch.stack(v, dim=1).to(torch.int32))
+        if row_hook:
+            inc = row_hook(t, inc, miss_lines)
         ctr += inc * xr[WT][:, None]
         if track_ab:
             ctr_a += inc * xr[WA][:, None]
             ctr_b += inc * xr[WB][:, None]
-    shape = (P, C, M, NUM_COUNTERS)
+    shape = (P, C, M) + ((N,) if cores else ()) + (width,)
     return ctr.view(shape), ctr_a.view(shape), ctr_b.view(shape)
 
 
@@ -501,13 +534,16 @@ def _reg_rows(x, prog, cfg, track_ab, lengths):
     return stream, ctr
 
 
-def l1_accesses(x, spill0s, stream, l1_prog, l1_reg, lengths=None):
+def l1_accesses(x, spill0s, stream, l1_prog, l1_reg, lengths=None,
+                l1_base=None):
     """Every active L1 access of each K1b lane, in engine order (row, then
     site): lane j walks program ``l1_prog[j]``'s rows, with K1a lane
     ``l1_reg[j]``'s spills and fills at sites 0..5 (none for -1, the full
     VRF) and the row's MEM lanes at sites 6 and 7.  Returns (N,) int64
     tensors ``lane, row, site, line, write`` sorted by (lane, row, site);
-    a spill or fill goes to ``spill0 + register``, wrapping as int32."""
+    a spill or fill goes to ``spill0 + register``, wrapping as int32.
+    ``l1_base`` (L,) shifts every line of a lane (a cluster core's address
+    colour; default 0), wrapping as int32 too."""
     P, T, _ = x.shape
     dev = x.device
     prog = torch.as_tensor(l1_prog, device=dev).to(torch.long).reshape(-1)
@@ -521,8 +557,11 @@ def l1_accesses(x, spill0s, stream, l1_prog, l1_reg, lengths=None):
         regs = torch.where((reg >= 0)[:, None, None],
                            stream[reg.clamp(min=0)].long(), regs)
     sp0 = torch.as_tensor(spill0s, device=dev).to(torch.long)[prog]
-    line = torch.cat([_wrap32(sp0[:, None, None] + regs.clamp(min=0)),
-                      xp[..., ML:ML + 2]], dim=2)
+    base = torch.zeros(L, dtype=torch.long, device=dev) if l1_base is None \
+        else torch.as_tensor(l1_base, device=dev).to(torch.long).reshape(-1)
+    line = _wrap32(torch.cat([sp0[:, None, None] + regs.clamp(min=0),
+                              xp[..., ML:ML + 2]], dim=2)
+                   + base[:, None, None])
     active = torch.cat([regs >= 0, xp[..., MV:MV + 2] != 0],
                        dim=2) & inside[..., None]
     spill = torch.tensor([1, 0] * 3, dtype=torch.long, device=dev)
@@ -677,22 +716,28 @@ def l1_finish(tsum, sums, reg_ctr, l1_prog, l1_reg, out_l1, mach, *,
 
 def engine_l1_plain(x, spill0s, stream, reg_ctr, l1_prog, l1_reg, out_l1,
                     mach, *, l1_sets: int, l1_ways: int,
-                    track_ab: bool = True, lengths=None):
+                    track_ab: bool = True, lengths=None, l1_base=None,
+                    keep: bool = False):
     """K1b in plain torch: the L1 half of the reference's ``_make_body``
     (``_l1_access`` on the spill, fill and MEM accesses) for K1b lanes
-    (``l1_prog``, ``l1_reg``: see :func:`l1_accesses`), walked by (lane,
-    set) bucket once for all machine points, then :func:`l1_finish` for
-    the outputs
-    ``out_l1``.  ``stream`` and ``reg_ctr`` are K1a's.  Returns
-    ``(ctr, ctr_a, ctr_b)``, (Q, M, 12) int32 each."""
+    (``l1_prog``, ``l1_reg``, ``l1_base``: see :func:`l1_accesses`),
+    walked by (lane, set) bucket once for all machine points, then
+    :func:`l1_finish` for the outputs ``out_l1``.  ``stream`` and
+    ``reg_ctr`` are K1a's.  Returns ``(ctr, ctr_a, ctr_b)``, (Q, M, 12)
+    int32 each; with ``keep``, also the lanes' accesses (``lane, row,
+    site, line``) and their ``miss`` flags, the L1-miss stream a
+    cluster's shared L2 takes (``kernels/cluster_scan.py``)."""
     lane, row, site, line, write = l1_accesses(x, spill0s, stream, l1_prog,
-                                               l1_reg, lengths)
+                                               l1_reg, lengths, l1_base)
     L = len(l1_prog)
     miss, wb = l1_outcomes(lane, line, write, _stamp(row, site), L, l1_sets,
                            l1_ways)
     sums = l1_sums(x, l1_prog, lane, row, site, miss, wb, L)
-    return l1_finish(trace_sums(x, lengths), sums, reg_ctr, l1_prog, l1_reg,
-                     out_l1, mach, track_ab=track_ab)
+    out = l1_finish(trace_sums(x, lengths), sums, reg_ctr, l1_prog, l1_reg,
+                    out_l1, mach, track_ab=track_ab)
+    if keep:
+        return out, dict(lane=lane, row=row, site=site, line=line, miss=miss)
+    return out
 
 
 def _split_run(x, spill0s, cfg, mach, *, l1_sets, l1_ways, track_ab,
@@ -755,7 +800,7 @@ ARGTYPES = {
                           _P],
     "engine_l1_launch": ([_P, _I, _LL, _P, _P, _P, _P, _I, _P, _P, _I, _P,
                           _I, _P, _P, _P, _I, _I, _I, _I, _P, _LL]
-                         + [_P] * 10),
+                         + [_P] * 11),
     "engine_scan_tile": [_I, _I, _P],
 }
 TILE_KEYS = ("reg_warps_per_cta", "chunk_rows", "ncol", "reg_smem_bytes",
@@ -812,15 +857,16 @@ def _rows_on_card(x, who):
     return x.contiguous()
 
 
-def _launch(x, entry, *args):
-    """Call a C entry point on x's card and current stream; raises on a
-    refused geometry (-1) and on a failed launch."""
+def _launch(x, entry, *args, library=None):
+    """Call a C entry point of ``library`` (default: this module's) on x's
+    card and current stream; raises on a refused geometry (-1) and on a
+    failed launch."""
     dev = x.device
     ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
            else torch.cuda.device(dev))
     with ctx:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_library(), entry)(*args, stream)
+        err = getattr((library or _library)(), entry)(*args, stream)
     if err == -1:
         raise ValueError(f"{entry}: the kernel refused its arguments")
     if err:
@@ -868,12 +914,17 @@ def engine_reg_cuda(x, prog, cfg, *, track_ab: bool = True, lengths=None):
 @RouteCounted.over("set")
 def engine_l1_cuda(x, spill0s, stream, reg_ctr, l1_prog, l1_reg, out_l1,
                    mach, *, l1_sets: int, l1_ways: int,
-                   track_ab: bool = True, lengths=None):
+                   track_ab: bool = True, lengths=None, l1_base=None,
+                   keep: bool = False):
     """Launch K1b on a CUDA tensor ``x``: bucket the K1b lanes' accesses
     by set, walk each (lane, set) bucket on one thread, reduce over sets
     and apply the closed form per machine.  Arguments and result as
-    :func:`engine_l1_plain`'s.  Raises on what the kernels do not take
-    and on a failed launch; never falls back."""
+    :func:`engine_l1_plain`'s, but ``keep`` returns K1b's own buffers:
+    the bucketed records (``recs``: line, ``row << 4 | site << 1 |
+    write``), their ``outcome`` bytes (``miss | write-back << 1``), the
+    bucket offsets ``hist`` and what indexes them (``tiles``, ``slots``:
+    each lane's first access slot in engine order).  Raises on what the
+    kernels do not take and on a failed launch; never falls back."""
     x = _rows_on_card(x, "engine_l1_cuda")
     P, T, _ = x.shape
     dev = x.device
@@ -904,10 +955,14 @@ def engine_l1_cuda(x, spill0s, stream, reg_ctr, l1_prog, l1_reg, out_l1,
             or max(host_reg) >= R or min(host_out) < 0
             or max(host_out) >= L):
         raise ValueError("engine_l1_cuda: a lane index is out of range")
+    base = None if l1_base is None else _int32_on(l1_base, dev, "l1_base")
+    if base is not None and base.shape != (L,):
+        raise ValueError("engine_l1_cuda: l1_base must be (L,)")
     tiles = _tiles(T)
     n = L * l1_sets * tiles
-    slots = sum(host_len[p] * (SITES if r >= 0 else 2)
-                for p, r in zip(host_prog, host_reg))
+    lane_slots = [host_len[p] * (SITES if r >= 0 else 2)
+                  for p, r in zip(host_prog, host_reg)]
+    slots = sum(lane_slots)
     tprog = _int32_on(sorted(set(host_prog)), dev, "programs")
     i32 = dict(dtype=torch.int32, device=dev)
     hist = torch.empty(n + 1, **i32)
@@ -923,8 +978,13 @@ def engine_l1_cuda(x, spill0s, stream, reg_ctr, l1_prog, l1_reg, out_l1,
                    reg_ctr.contiguous()), L, *_ptrs(prog, reg), Q,
             out_l1.data_ptr(), M, *_ptrs(*mach), l1_sets, l1_ways,
             int(bool(track_ab)), tprog.shape[0], tprog.data_ptr(), slots,
-            *_ptrs(hist, blocks, recs, outcome, l1sum, tsum, *outs))
+            *_ptrs(hist, blocks, recs, outcome, l1sum, tsum, *outs),
+            None if base is None else base.data_ptr())
     engine_l1_cuda.count(dict(route="set"))
+    if keep:
+        return tuple(outs), dict(
+            recs=recs, outcome=outcome, hist=hist, tiles=tiles,
+            slots=np.cumsum([0] + lane_slots).tolist())
     return tuple(outs)
 
 

@@ -13,7 +13,8 @@ above the refine limit), folding off, and ``max_events`` truncation.  The
 port's deliberate differences are pinned too: its plan has no shape
 buckets, its ``meta`` has ``dispatches`` (one engine call per geometry
 plus one per refined program) and ``launches`` but no ``compiles``, and
-the reference's ``network``/``cores`` axes raise until their slices land.
+the reference's ``network`` axis raises until its slice lands (the
+``cores`` axis is held in ``test_torch_cluster.py``).
 """
 
 import dataclasses
@@ -115,7 +116,8 @@ def test_session_run_matches_reference(case):
         dict(l1_geometry=str(g), kernels=list(sweep.kernels), fused=False)
         for g in sweep.l1_geometry]
     assert "compiles" not in got.meta
-    assert got.meta["launches"] == {"engine_reg": 0, "engine_l1": 0}
+    assert got.meta["launches"] == {"engine_reg": 0, "engine_l1": 0,
+                                    "cluster_l2": 0}
     assert got.meta["device"] == "cpu"
     # ... plus one per refined program: those whose fold did not certify
     # somewhere on the grid and that fit under the refine limit
@@ -180,10 +182,6 @@ def test_unknown_kernel_raises_with_menu():
 def test_unported_axes_raise():
     with pytest.raises(NotImplementedError, match="P6"):
         tapi.Sweep(kernels=["gemv"], network=("phi3-mini-3.8b",))
-    with pytest.raises(NotImplementedError, match="P4"):
-        tapi.Sweep(kernels=["gemv"], cores=(1, 2))
-    with pytest.raises(NotImplementedError, match="P4"):
-        tapi.Sweep(kernels=["gemv"], cluster=object())
     assert tapi.Sweep(kernels=["gemv"], cores=1).cores == (1,)
 
 

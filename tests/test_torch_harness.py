@@ -77,7 +77,8 @@ def test_run_json_report_equals_reference(tmp_path, budget, suites,
         assert "compiles" not in rec
         assert rec["rows"] == ref["rows"]
         assert rec["device"] == "cpu"
-        assert rec["launches"] == {"engine_reg": 0, "engine_l1": 0}
+        assert rec["launches"] == {"engine_reg": 0, "engine_l1": 0,
+                                   "cluster_l2": 0}
         assert len(rec["sweeps"]) == len(ref["sweeps"])
         for s, r in zip(rec["sweeps"], ref["sweeps"]):
             for key in ("axes", "points", "fold", "kernel_params",

@@ -32,7 +32,10 @@ def test_port_and_chip_smoke_import_without_jax():
               "repro_torch.benchmarks.vmem_dispersion",
               "repro_torch.kernels.engine_scan", "repro_torch.core.simulator",
               "repro_torch.core.folding", "repro_torch.core.planner",
-              "repro_torch.configs.paper_machine", "repro_torch.device"):
+              "repro_torch.configs.paper_machine", "repro_torch.device",
+              "repro_torch.cluster", "repro_torch.kernels.cluster_scan",
+              "repro_torch.benchmarks.cluster_sweep",
+              "repro_torch.benchmarks.dse"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -84,8 +87,8 @@ def test_kernel_build_needs_nvcc_and_names_libraries_by_source():
 def test_every_kernel_source_gets_its_own_library():
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["dispersed_gemm", "engine_scan", "flash_attention",
-                     "rmsnorm"]
+    assert names == ["cluster_scan", "dispersed_gemm", "engine_scan",
+                     "flash_attention", "rmsnorm"]
     paths = {_build.library_path(n) for n in names}
     assert len(paths) == len(names)
     for name in names:
