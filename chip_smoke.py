@@ -132,8 +132,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.benchmarks import (cluster_sweep, dse, roofline,  # noqa: E402
                                     vmem_dispersion)
 from repro_torch.benchmarks import run as bench_run  # noqa: E402
-from repro_torch.benchmarks.engine_timing import (KERNEL_NAMES,  # noqa: E402
-                                                   _per_kernel_ms)
+from repro_torch.benchmarks.engine_timing import (  # noqa: E402
+    KERNEL_NAMES, _k2_alone)
 from repro_torch import api, rvv  # noqa: E402
 from repro_torch.cluster import ClusterConfig  # noqa: E402
 from repro_torch.cluster import engine as cluster_engine  # noqa: E402
@@ -1371,7 +1371,8 @@ CLUSTER_PROVENANCE = ("plan_group", "bucket", "fused")
 # the suites' 256 x 4 L2 on two channels, an odd 32 x 3 on three)
 CLUSTER_CHECK_CORES = (1, 2, 4, 8)
 K2_KERNEL_NAMES = re.compile(
-    r"cluster_(misses|bucket|walk|arbiter|finish)|scan_(sums|blocks|apply)<1>")
+    r"cluster_(mark|compact|lanes|bucket|walk|arbiter|finish)"
+    r"|scan_(sums|blocks|apply)(_dev)?<1>")
 
 
 def _check_clusters() -> list:
@@ -1390,26 +1391,46 @@ def _cluster_inputs(preps, sweep, machines):
 
 
 def time_k2(x, spill0s, strides, cfg, mach, clusters, kw) -> dict:
-    """K2 alone on the card: per launch group K1a and K1b once (K1b's
-    buffers kept), then K2's device time (CUDA events, ENGINE_ITERS calls
-    after a warm-up), its bucketed requests and largest (lane, L2 set)
-    bucket, and its bound: the larger of K1b's records (8 bytes) and
-    outcomes (1 byte) read once with the per-core counters written once,
-    over HBM, and ENGINE_OPS_PER_WAY operations on each L2 way per
-    bucketed request over the CUDA cores' peak; and one call's device ms
-    per kernel."""
-    lengths = kw["lengths"]
-    plan = cs.cluster_scan_plan(
-        kw["l1_sets"], kw["l1_ways"], lengths, cfg, clusters,
-        strides=strides, invariant=cs.address_invariant(
-            x, spill0s, strides, lengths, max(c.n_cores for c in clusters)),
-        T=x.shape[1])
-    out = dict(groups=len(plan["groups"]), ms=0.0, requests=0,
-               largest_bucket=0, records=0, k2_lanes=0, per_kernel_ms={})
-    nbytes, ops = 0, 0
+    """K2 alone on the card (engine_timing's _k2_alone: per launch group
+    K1a and K1b once, K1b's buffers kept, then K2's time by CUDA events
+    over ENGINE_ITERS calls after a warm-up, the host's time to issue a
+    call, and one call's device ms per kernel, memset and copy, whose sum
+    and the host gap make up K2's ms; its compacted L1 misses,
+    candidates, bucketed requests and largest (lane, L2 set) bucket), the
+    device time before the walk, and K2's bound: the larger of K1b's
+    records (8 bytes) and outcomes (1 byte) read once with the per-core
+    counters written once, over HBM, and ENGINE_OPS_PER_WAY operations on
+    each L2 way per bucketed request over the CUDA cores' peak."""
+    out = _k2_alone(cs, es, x, spill0s, strides, cfg, mach, clusters, kw)
     sets = 3 if kw["track_ab"] else 1
     ways = max((c.l2_ways for c in clusters if c.l2_sets), default=0)
-    for g in plan["groups"]:
+    nbytes = (out["records"] * 9 + sets * out["per_core_outputs"]
+              * len(mach[0]) * cs.CLUSTER_COUNTERS * 4)
+    ops = ENGINE_OPS_PER_WAY * ways * out["bucketed_requests"]
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops, torch.float32)
+    out["before_walk_device_ms"] = out["device_ms"] - sum(
+        ms for name, ms in out["per_kernel_ms"].items() if name.startswith(
+            ("cluster_walk", "cluster_arbiter", "cluster_finish")))
+    out["ns_per_chain_step"] = (out["ms"] * 1e6 / out["largest_bucket"]
+                                if out["largest_bucket"] else None)
+    return out
+
+
+def check_k2_buckets(label, x, spill0s, strides, cfg, mach, clusters, kw,
+                     plain_keeps) -> dict:
+    """K2's own buffers against their plain versions, per launch group:
+    the card's K1a and K1b (its buffers kept) feed cluster_l2_cuda, which
+    hands back its compacted L1-miss stream (row offsets, and each miss's
+    line, row and site), each K2 lane's first candidate and its request
+    buckets (each request's line and candidate, each (lane, L2 set)
+    bucket's offsets); miss_stream_plain and request_buckets_plain give
+    them from K1b's plain accesses and outcomes of the same group
+    (``plain_keeps``: the (group, keep) pairs of the plain run), and every
+    entry must be equal."""
+    lengths = kw["lengths"]
+    out = dict(groups=0, misses=0, candidates=0, requests=0, lanes=0,
+               per_core_lanes=0)
+    for g, keep_plain in plain_keeps:
         stream, ctr = _no_stream(x)
         if g["reg_lanes"]:
             prog, k = map(list, zip(*g["reg_lanes"]))
@@ -1422,36 +1443,40 @@ def time_k2(x, spill0s, strides, cfg, mach, clusters, kw) -> dict:
             [j for _, _, j in g["k1_outputs"]], mach, l1_sets=kw["l1_sets"],
             l1_ways=kw["l1_ways"], track_ab=kw["track_ab"], lengths=lengths,
             l1_base=l1_base, keep=True)
-        stats = {}
-
-        def call(stats=None):
-            return cs.cluster_l2_cuda(
-                x, keep, g, k1_outs, mach, clusters, l1_sets=kw["l1_sets"],
-                track_ab=kw["track_ab"], lengths=lengths, stats=stats)
-        call(stats)
-        out["ms"] += cuda_ms(call, warmup=1, iters=ENGINE_ITERS)
-        for name, ms in _per_kernel_ms(call, K2_KERNEL_NAMES).items():
-            out["per_kernel_ms"][name] = out["per_kernel_ms"].get(
-                name, 0.0) + ms
-        records = int(keep["hist"][-1])
-        out["records"] += records
-        out["requests"] += stats["bucketed_requests"]
-        out["largest_bucket"] = max(out["largest_bucket"],
-                                    stats["largest_bucket"])
-        out["k2_lanes"] += len(g["k2_lanes"])
-        per_core = sum(len(q1s) for *_, q1s in g["k2_outputs"])
-        nbytes += (records * 9 + sets * per_core * len(mach[0])
-                   * cs.CLUSTER_COUNTERS * 4)
-        ops += ENGINE_OPS_PER_WAY * ways * stats["bucketed_requests"]
-        del keep
-    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops, torch.float32)
-    out["ns_per_chain_step"] = (out["ms"] * 1e6 / out["largest_bucket"]
-                                if out["largest_bucket"] else None)
+        got = {}
+        cs.cluster_l2_cuda(x, keep, g, k1_outs, mach, clusters,
+                           l1_sets=kw["l1_sets"], track_ab=kw["track_ab"],
+                           lengths=lengths, buffers=got)
+        want_stream = cs.miss_stream_plain(keep_plain, g, lengths)
+        want = cs.request_buckets_plain(want_stream, g, [
+            cs._cluster(c) for c in clusters])
+        pairs = [("row_off", got["row_off"], want_stream["row_off"]),
+                 ("miss_line", got["miss_line"], want_stream["line"]),
+                 ("miss_row", got["miss_row"], want_stream["row"]),
+                 ("miss_site", got["miss_site"], want_stream["site"]),
+                 ("req_line", got["req_line"], want["req_line"]),
+                 ("req_cand", got["req_cand"], want["req_cand"])]
+        pairs += [(f"bucket_start[{k}]", a, b) for k, (a, b) in enumerate(
+            zip(got["bucket_start"], want["bucket_start"]))]
+        for name, a, b in pairs:
+            check(a.shape == b.shape and torch.equal(a.cpu(), b.cpu()),
+                  f"cluster {label}: K2's {name} differs from its plain "
+                  f"version ({tuple(a.shape)} vs {tuple(b.shape)})")
+        check(got["cand_base"] == want["cand_base"], f"cluster {label}: "
+              f"K2's candidate bases differ from their plain version")
+        out["groups"] += 1
+        out["misses"] += int(want_stream["line"].numel())
+        out["candidates"] += want["cand_base"][-1]
+        out["requests"] += int(want["req_line"].numel())
+        out["lanes"] += len(g["k2_lanes"])
+        out["per_core_lanes"] += sum(len(set(v[3])) > 1
+                                     for v in g["k2_lanes"])
+    log("cluster", check=f"{label}_buckets", equal=True, **out)
     return out
 
 
 def check_cluster_kernel(label, preps, sweep, machines, clusters,
-                         depth=None) -> dict:
+                         depth=None, edge=()) -> dict:
     """The cluster on the card (cluster_scan_cuda: K1a, K1b, K2) against
     the split's plain versions on the host's CPU (engine_l1_plain then
     cluster_l2_plain, as cluster_split_plain runs them, fed K1a's cVRF
@@ -1460,20 +1485,29 @@ def check_cluster_kernel(label, preps, sweep, machines, clusters,
     check's time) on the same inputs, every cluster point, all three
     counter sets of all 15 per-core counters, bitwise; the plain
     versions' host ms (K2's own apart) and K2's device ms on those
-    inputs.  ``depth`` cuts each trace to its first rows."""
+    inputs.  ``depth`` cuts each trace to its first rows; the programs
+    of ``edge`` have their spill region moved so near 2^31 that the
+    cores' shifted lines leave the int32 range, which gives each of their
+    cores a K1b lane of its own (K2's per-core lanes)."""
     if depth is not None:
         preps = [simulator._slice_prep(p, min(p.num_rows, depth))
                  for p in preps]
     x_cpu, spill0s, strides, cfg, mach, kw = _cluster_inputs(
         preps, sweep, machines)
+    if edge:
+        spill0s = np.array(spill0s, np.int64)
+        for p in edge:
+            spill0s[p] = 2 ** 31 - 3 * strides[p] - 20
     x = x_cpu.cuda()
     k2_plain_s = [0.0]
+    plain_keeps = []
 
     def card_reg(_, prog, reg_cfg, **kwargs):
         return tuple(t.cpu() for t in es.engine_reg_cuda(x, prog, reg_cfg,
                                                          **kwargs))
 
     def timed_l2(*args, **kwargs):
+        plain_keeps.append((args[2], args[1]))
         t0 = time.perf_counter()
         out = cs.cluster_l2_plain(*args, **kwargs)
         k2_plain_s[0] += time.perf_counter() - t0
@@ -1493,13 +1527,24 @@ def check_cluster_kernel(label, preps, sweep, machines, clusters,
             err = max(err, diff)
             check(diff == 0, f"cluster {label}: K2 {name} differs from the "
                   f"split's plain versions by up to {diff} at {cl}")
+    buckets = check_k2_buckets(label, x, spill0s, strides, cfg, mach,
+                               clusters, kw, plain_keeps)
+    del plain_keeps
+    check(buckets["per_core_lanes"] > 0 or not edge, f"cluster {label}: "
+          f"no per-core K2 lane")
     k2 = time_k2(x, spill0s, strides, cfg, mach, clusters, kw)
     out = dict(programs=len(preps), rows=max(kw["lengths"]),
                configs=len(sweep), machines=len(machines),
                clusters=len(clusters), max_abs_err=err,
                plain_ms=plain_ms, k2_plain_ms=k2_plain_s[0] * 1e3,
-               k2_ms=k2["ms"], k2_lanes=k2["k2_lanes"],
-               k2_largest_bucket=k2["largest_bucket"])
+               k2_ms=k2["ms"], k2_device_ms=k2["device_ms"],
+               k2_host_issue_ms=k2["host_issue_ms"],
+               k2_host_issue_first_ms=k2["host_issue_first_ms"],
+               k2_per_kernel_ms=k2["per_kernel_ms"], k2_lanes=k2["k2_lanes"],
+               k2_largest_bucket=k2["largest_bucket"],
+               k2_compacted_misses=buckets["misses"],
+               k2_requests=buckets["requests"],
+               k2_per_core_lanes=buckets["per_core_lanes"])
     log("cluster", check=label, equal=True, **out)
     return dict(out, x=x, inputs=(spill0s, strides, cfg, mach, kw), got=got)
 
@@ -1512,7 +1557,7 @@ def k2_buckets():
     bucket sizes (one synchronisation a launch).  The wrapper lends the
     wrapped function's ``count``, which the function reaches by that
     name, so the launches still count where they did."""
-    seen = dict(largest_bucket=0, bucketed_requests=0)
+    seen = dict(largest_bucket=0, bucketed_requests=0, compacted_misses=0)
     wrapped = cs.cluster_l2_cuda
 
     def call(*args, **kw):
@@ -1521,6 +1566,7 @@ def k2_buckets():
         seen["largest_bucket"] = max(seen["largest_bucket"],
                                      stats["largest_bucket"])
         seen["bucketed_requests"] += stats["bucketed_requests"]
+        seen["compacted_misses"] += stats["compacted_misses"]
         return out
     call.count = wrapped.count
     cs.cluster_l2_cuda = call
@@ -1563,9 +1609,10 @@ def phase_cluster(session) -> dict:
     versions (bitwise, every cluster point of _check_clusters(): N = 1,
     2, 4, 8 behind five shared memories) on the [engine] twin check's
     reduced inputs (every rvv program, CONF_POINTS' configs and
-    machines), and on the cluster suites' paper inputs cut to
-    ENGINE_CHECK_ROWS rows; the N = 1 passthrough equal to K1's counters
-    on the card.  Then the main path: cluster_sweep and dse through
+    machines), on gemv and dropout with dropout's spill region at the
+    int32 edge (per-core K1b lanes), and on the cluster suites' paper
+    inputs cut to ENGINE_CHECK_ROWS rows; the N = 1 passthrough equal to
+    K1's counters on the card.  Then the main path: cluster_sweep and dse through
     repro_torch.benchmarks.run in this process at paper size, through
     ``session``, each under torch.profiler: every numeric field of every
     row held exactly to BENCH_core.json (720 and 972 values), their
@@ -1587,6 +1634,12 @@ def phase_cluster(session) -> dict:
     reduced = check_cluster_kernel(
         "reduced", [simulator.prepare(p) for p in built.values()], sweep,
         machines, clusters)
+    per_core = check_cluster_kernel(
+        "reduced_per_core_lanes",
+        [simulator.prepare(built[n]) for n in ("gemv", "dropout")], sweep,
+        machines, clusters, edge=(1,))
+    for key in ("x", "inputs", "got"):
+        per_core.pop(key)
     # The passthrough identity: one core, no L2, no queue -> K1's counters
     x = reduced.pop("x")
     spill0s, strides, cfg, mach, kw = reduced.pop("inputs")
@@ -1652,6 +1705,7 @@ def phase_cluster(session) -> dict:
                 k2_device_ms=_engine_device_ms(prof, K2_KERNEL_NAMES),
                 k2_largest_bucket=k2b["largest_bucket"],
                 k2_bucketed_requests=k2b["bucketed_requests"],
+                k2_compacted_misses=k2b["compacted_misses"],
                 held=h, profiled_s=round(time.perf_counter() - t0, 3))
             log("cluster", suite=suite, **per_suite[suite])
     main_s = time.perf_counter() - t_main
@@ -1684,7 +1738,8 @@ def phase_cluster(session) -> dict:
     log("cluster", timing="cluster_sweep_4kb_folded", **timing)
     seconds = time.perf_counter() - t_phase
     log("cluster", seconds=round(seconds, 2))
-    return dict(reduced=reduced, paper_cut=paper_cut, suites=per_suite,
+    return dict(reduced=reduced, per_core=per_core, paper_cut=paper_cut,
+                suites=per_suite,
                 held=held, launches=launches, timing=timing,
                 main_path_s=main_s, seconds=seconds)
 

@@ -21,16 +21,18 @@ bucketed records and their outcome bytes).  A program whose lines would
 leave that range gets one K1b lane per core, each with its own base, and
 K2 reads each core's own stream: nothing is approximated.
 
-K2 on the card, one launch: the L1 misses back into engine order; per
-(K2 lane, tile of rows) a warp counts each (row, rank)'s requests and the
-requests per L2 set, an exclusive scan, the same warps scatter each
-request in (row, rank, site) order to its (lane, L2 set) bucket; one
-thread per bucket walks it through the set's ways with a local clock (the
-L2 decides from the order within a set only) and moves each hit from
-the (row, rank)'s request count to its hit count; per (lane, row) the
-arbiter's exclusive scan over ranks and ``// mem_channels``, summed per
-core times ``wt``/``wa``/``wb``; the closed form per (output, machine,
-core) adds K1's counters.
+K2 on the card, one launch whose work and buffers scale with the L1
+misses and not with rows x cores x sites: K1b's misses compacted per K1b
+lane in (row, site) order (a missed-site mask and a count per row, an
+exclusive scan, a scatter); each K2 lane's candidates (its cores' misses
+in the reference's (row, rank, site) order, numbered on the card) counted
+per (lane, L2 set, tile of candidates) by a warp, an exclusive scan, the
+same warps scatter each request to its (lane, L2 set) bucket; one thread
+per bucket walks it through the set's ways with a local clock (the L2
+decides from the order within a set only) and marks each hit; per (lane,
+row with a miss) the arbiter's exclusive scan over ranks and
+``// mem_channels``, summed per core times ``wt``/``wa``/``wb``; the
+closed form per (output, machine, core) adds K1's counters.
 
 Plain versions: :func:`cluster_scan_plain`, the twin, a separate
 formulation of the reference's lockstep step (K1's one-walk twin with N
@@ -40,7 +42,10 @@ CPU path.  :func:`cluster_l2_plain`, K2's counterpart in the split: it
 takes K1b's plain accesses and outcomes (``engine_scan.l1_accesses``,
 ``l1_outcomes``), expands them to N cores and walks by L2 set; composed
 with K1's plain halves it is :func:`cluster_split_plain`, K2's oracle on
-the card.
+the card.  :func:`miss_stream_plain` and :func:`request_buckets_plain` are
+the plain versions of K2's compacted miss stream and its request buckets,
+which :func:`cluster_l2_plain` walks and on which the card's buffers are
+held (``cluster_l2_cuda(..., buffers=...)``).
 """
 
 from __future__ import annotations
@@ -70,16 +75,21 @@ K2_SUMS = 3
 # A row's requests and hits per rank pack into one byte each of a 64-bit
 # word, so a K2 lane takes at most 8 cores
 MAX_CORES = 8
-# The kernel's tiles (csrc/cluster_scan.cu): rows a bucketing warp takes,
-# bucketing warps a CTA (each with a shared counter per L2 set), walkers
-# a CTA
-K2_TILE_ROWS = 256
+# The kernel's tiles (csrc/cluster_scan.cu): candidates a bucketing warp
+# takes, bucketing warps a CTA (each with a shared counter per L2 set),
+# walkers a CTA, CTAs of the bucket offsets' scan at most
+K2_TILE_CANDIDATES = 512
 K2_HIST_WARPS = 4
 K2_WALK_THREADS = 128
-TILE_KEYS = ("tile_rows", "hist_warps_per_cta", "hist_smem_bytes",
+K2_SCAN_CTAS = 1024
+TILE_KEYS = ("tile_candidates", "hist_warps_per_cta", "hist_smem_bytes",
              "way_slots", "walk_threads", "max_cores")
-# Bytes a bucketed request takes: line and row << 3 | rank
-REQUEST_BYTES = 8
+# Bytes a candidate takes (its bucketed request: line and candidate, and
+# its state byte), a compacted miss (line and row << 3 | site, and its
+# place byte) and a (K1b lane, row) (its missed-site mask and offset)
+CANDIDATE_BYTES = 9
+MISS_BYTES = 9
+ROW_BYTES = 5
 
 
 def _cluster(cl) -> tuple[int, int, int, int, int]:
@@ -136,7 +146,10 @@ def cluster_scan_plan(l1_sets: int, l1_ways: int, lengths, cfg, clusters, *,
     * ``k2_outputs`` (program, config, cluster point, K2 lane, each core's
       K1 output);
 
-    and the bytes of its buffers.  Raises ``ValueError`` for what the
+    the bytes of its buffers, K2's bounded by the access slots (a
+    lane's candidates, its cores' L1 misses, are at most cores x rows x
+    sites), and ``k2_table``, what K2's launch takes from the host
+    (:func:`_k2_table`).  Raises ``ValueError`` for what the
     kernels do not take: more than :data:`MAX_CORES` cores, L2 ways
     outside 1..32, L2 sets whose bucketing counters pass the CTA's shared
     memory, and whatever K1 refuses."""
@@ -160,7 +173,8 @@ def cluster_scan_plan(l1_sets: int, l1_ways: int, lengths, cfg, clusters, *,
                 f"at most {k1.MAX_SMEM_BYTES} bytes of bucketing counters, "
                 f"got {n} cores x {sets} sets x {w} ways, {chan} channels "
                 f"({hist_smem} bytes)")
-    tile = dict(tile_rows=K2_TILE_ROWS, hist_warps_per_cta=K2_HIST_WARPS,
+    tile = dict(tile_candidates=K2_TILE_CANDIDATES,
+                hist_warps_per_cta=K2_HIST_WARPS,
                 hist_smem_bytes=hist_smem,
                 way_slots=1 << (ways - 1).bit_length(),
                 walk_threads=K2_WALK_THREADS, max_cores=MAX_CORES)
@@ -168,12 +182,11 @@ def cluster_scan_plan(l1_sets: int, l1_ways: int, lengths, cfg, clusters, *,
     classes = k1.cvrf_classes(*cfg)
     kinds = list(dict.fromkeys(classes))
     tiles1 = k1._tiles(T)
-    tiles2 = max(1, -(-T // K2_TILE_ROWS))
     groups, group = [], None
     for p, rows in enumerate(lengths):
         cores1 = 1 if invariant[p] else nmax
-        need = dict.fromkeys(("stream", "records", "hist", "misses",
-                              "counts", "requests", "l2_hist"), 0)
+        need = dict.fromkeys(("stream", "records", "hist", "misses", "rows",
+                              "requests", "l2_hist"), 0)
         fam = dict(reg_lanes=[], l1_lanes=[], k1_outputs=[], k2_lanes=[],
                    k2_outputs=[])
         for k in kinds:
@@ -190,7 +203,8 @@ def cluster_scan_plan(l1_sets: int, l1_ways: int, lengths, cfg, clusters, *,
                                         k1._i32(c * int(strides[p]))))
             need["records"] += cores1 * rows * nsites * k1.RECORD_BYTES
             need["hist"] += cores1 * l1_sets * tiles1 * 4
-            need["misses"] += cores1 * rows * nsites * 4
+            need["misses"] += cores1 * rows * nsites * MISS_BYTES
+            need["rows"] += cores1 * rows * ROW_BYTES
             outs = {}
             for c, kc in enumerate(classes):
                 if kc == k:
@@ -198,7 +212,7 @@ def cluster_scan_plan(l1_sets: int, l1_ways: int, lengths, cfg, clusters, *,
                     for j in lanes:
                         outs[c].append(len(fam["k1_outputs"]))
                         fam["k1_outputs"].append((p, c, j))
-            for i, (n, *_rest) in enumerate(clusters):
+            for i, (n, sets, *_rest) in enumerate(clusters):
                 kl = len(fam["k2_lanes"])
                 if cores1 == 1:
                     l1s = [lanes[0]] * n
@@ -210,9 +224,9 @@ def cluster_scan_plan(l1_sets: int, l1_ways: int, lengths, cfg, clusters, *,
                 fam["k2_lanes"].append((p, k, i, l1s, shifts))
                 fam["k2_outputs"] += [(p, c, i, kl, [q1[a] for a in at])
                                       for c, q1 in outs.items()]
-                need["counts"] += T * 8
-                need["requests"] += n * rows * nsites * REQUEST_BYTES
-                need["l2_hist"] += S * tiles2 * 4
+                cands = n * rows * nsites
+                need["requests"] += cands * CANDIDATE_BYTES
+                need["l2_hist"] += sets * -(-cands // K2_TILE_CANDIDATES) * 4
         if group is None or (group["k2_lanes"] and sum(
                 group["bytes"].values()) + sum(need.values())
                 > k1.STREAM_BUDGET_BYTES):
@@ -224,11 +238,52 @@ def cluster_scan_plan(l1_sets: int, l1_ways: int, lengths, cfg, clusters, *,
         for key, v in need.items():
             group["bytes"][key] += v
     for g in groups:
-        if g["bytes"]["requests"] >= 2 ** 31 * REQUEST_BYTES:
-            raise ValueError("cluster_scan takes fewer than 2^31 requests "
-                             "a launch group")
+        if g["bytes"]["requests"] >= 2 ** 31 * CANDIDATE_BYTES:
+            raise ValueError("cluster_scan takes fewer than 2^31 candidate "
+                             "requests a launch group")
+        g["k2_table"] = _k2_table(g, clusters, lengths)
     return dict(route="l2set", tile=tile, classes=classes, l2_sets=S,
                 groups=groups, budget_bytes=k1.STREAM_BUDGET_BYTES)
+
+
+def _k2_table(group, clusters, lengths) -> dict:
+    """What K2's launch for ``group`` takes from the host, built once with
+    the plan: ``flat``, one int32 array of the programs' lengths, each K1b
+    lane's first row slot (L + 1: its program's rows summed over the
+    lanes before it), the K2 lanes' program, cores, L2 sets, ways,
+    channels and hit cycles (K each), each lane's cores' K1b lanes and
+    shifts ((K, MAX_CORES) each), each output's lane (Q) and its cores'
+    K1 outputs ((Q, MAX_CORES)), with ``at``, each array's offset; and
+    the bounds the buffers are sized by: ``row_slots``, ``candidates``
+    (cores x rows x sites a lane, summed), ``tiles`` (of
+    :data:`K2_TILE_CANDIDATES` candidates) and ``hist_entries`` ((set,
+    tile) pairs).  :func:`cluster_l2_cuda` keeps its card copies under
+    ``on``."""
+    lanes, outputs, l1 = (group[k] for k in ("k2_lanes", "k2_outputs",
+                                             "l1_lanes"))
+    K = len(lanes)
+    cl = [clusters[i] for _, _, i, _, _ in lanes]
+    row0 = np.cumsum([0] + [lengths[p] for p, *_ in l1])
+    cands = [c[0] * lengths[p] * (SITES if l1[l1s[0]][2] >= 0 else 2)
+             for (p, _, _, l1s, _), c in zip(lanes, cl)]
+    tiles = [-(-n // K2_TILE_CANDIDATES) for n in cands]
+    lane_tab = np.array([[v[0], *c, *l1s, *sh] for v, c, l1s, sh in zip(
+        lanes, cl, _padded([v[3] for v in lanes], 0),
+        _padded([v[4] for v in lanes], 0))], np.int64).reshape(K, -1)
+    out_tab = np.array([[o[3], *q1s] for o, q1s in zip(
+        outputs, _padded([o[4] for o in outputs], 0))],
+        np.int64).reshape(len(outputs), -1)
+    parts = [np.asarray(lengths, np.int64), row0, lane_tab[:, :6].T,
+             lane_tab[:, 6:].reshape(K, 2, MAX_CORES).transpose(1, 0, 2),
+             out_tab[:, 0], out_tab[:, 1:]]
+    flat = np.concatenate([v.ravel() for v in parts])
+    if flat.size and (flat.min() < -2 ** 31 or flat.max() >= 2 ** 31):
+        raise ValueError("cluster_scan: a K2 lane array exceeds int32")
+    return dict(flat=flat.astype(np.int32),
+                at=np.cumsum([0] + [v.size for v in parts]).tolist(),
+                row_slots=int(row0[-1]), candidates=sum(cands),
+                tiles=sum(tiles),
+                hist_entries=sum(c[1] * t for c, t in zip(cl, tiles)))
 
 
 def _append_family(group, fam) -> None:
@@ -344,58 +399,133 @@ def cluster_finish(k1_outs, sums, outputs, mach, clusters, *,
     return tuple(out[s].contiguous() for s in range(NUM_SETS))
 
 
+def miss_stream_plain(keep, group, lengths) -> dict:
+    """K2's compacted L1-miss stream in plain torch: each K1b lane of
+    ``group``'s L1 misses (from ``keep``, the ``lane, row, site, line,
+    miss`` of ``engine_scan.engine_l1_plain(..., keep=True)``, in engine
+    order) in (lane, row, site) order.  Each lane owns the row slots
+    ``row0[j]:row0[j + 1]`` (its program's rows, ``lengths[p]``).
+    Returns ``row0`` (L + 1) and, as int64 tensors, ``row_off`` (row
+    slots + 1: the misses before each slot), ``row_mask`` (per slot, bit
+    s for a miss at site s) and per miss its ``line``, ``row``, ``site``,
+    ``place`` in its row and its row's misses ``row_misses``."""
+    dev = keep["line"].device
+    row0 = np.cumsum([0] + [int(lengths[p]) for p, *_ in
+                            group["l1_lanes"]]).tolist()
+    miss = keep["miss"]
+    lane, row, site, line = (keep[k][miss] for k in ("lane", "row", "site",
+                                                     "line"))
+    cell = torch.as_tensor(row0[:-1], dtype=torch.long, device=dev)[
+        lane] + row
+    counts = torch.bincount(cell, minlength=row0[-1])
+    row_off = torch.zeros(row0[-1] + 1, dtype=torch.long, device=dev)
+    row_off[1:] = torch.cumsum(counts, 0)
+    row_mask = torch.zeros(row0[-1], dtype=torch.long, device=dev)
+    row_mask.index_add_(0, cell, torch.bitwise_left_shift(
+        torch.ones_like(site), site))
+    return dict(row0=row0, row_off=row_off, row_mask=row_mask, line=line,
+                row=row, site=site,
+                place=torch.arange(cell.numel(), device=dev) - row_off[cell],
+                row_misses=counts[cell])
+
+
+def request_buckets_plain(stream, group, clusters) -> dict:
+    """K2's candidates and request buckets in plain torch, from
+    :func:`miss_stream_plain`'s ``stream``: per K2 lane of ``group``
+    (lanes in order, candidate indices counted across them from
+    ``cand_base``), its candidates, each core's misses shifted by its
+    shift in the reference's (row, rank, site) order (rank r of row t is
+    core (t mod N + r) mod N); those at line >= 0 are requests, put
+    stably by L2 set (``line mod sets``) into the lane's buckets, which
+    follow each other lane by lane and set by set.  Returns
+    ``cand_base`` (K + 1), per candidate ``row``, ``rank``, ``line`` (the
+    shifted line) and ``on`` (a request), per bucketed request ``req_line``
+    and ``req_cand`` (its candidate), and ``bucket_start``: per lane its
+    sets + 1 bucket offsets into the requests (an empty tensor for a
+    lane without an L2)."""
+    dev = stream["row_off"].device
+    row0, row_off = stream["row0"], stream["row_off"]
+    rows, ranks, lines, bases = [], [], [], [0]
+    req_line, req_cand, starts = [], [], []
+    nreq = 0
+    for p, _, i, l1s, shifts in group["k2_lanes"]:
+        n, sets = clusters[i][0], clusters[i][1]
+        parts = []
+        for c in range(n):
+            a, b = (int(row_off[row0[j]]) for j in (l1s[c], l1s[c] + 1))
+            row = stream["row"][a:b]
+            parts.append(torch.stack([
+                row, torch.remainder(c - row, n), stream["site"][a:b],
+                _wrap32(stream["line"][a:b] + shifts[c])]))
+        row, rank, site, line = torch.cat(parts, dim=1)
+        order = torch.sort((row * n + rank) * SITES + site,
+                           stable=True).indices
+        row, rank, line = (v[order] for v in (row, rank, line))
+        rows.append(row)
+        ranks.append(rank)
+        lines.append(line)
+        on = torch.nonzero(line >= 0).flatten()
+        if sets:
+            s = torch.remainder(line[on], sets)
+            by = torch.sort(s, stable=True).indices
+            req_line.append(line[on[by]])
+            req_cand.append(bases[-1] + on[by])
+            starts.append(nreq + torch.searchsorted(
+                s[by], torch.arange(sets + 1, device=dev)))
+            nreq += on.numel()
+        else:
+            starts.append(torch.empty(0, dtype=torch.long, device=dev))
+        bases.append(bases[-1] + row.numel())
+    empty = torch.empty(0, dtype=torch.long, device=dev)
+    line = torch.cat(lines) if lines else empty
+    return dict(cand_base=bases, row=torch.cat(rows) if rows else empty,
+                rank=torch.cat(ranks) if ranks else empty, line=line,
+                on=line >= 0,
+                req_line=torch.cat(req_line) if req_line else empty,
+                req_cand=torch.cat(req_cand) if req_cand else empty,
+                bucket_start=starts)
+
+
 def cluster_l2_plain(x, keep, group, k1_outs, mach, clusters, *,
                      l1_sets: int, track_ab: bool = True, lengths=None):
     """K2 in plain torch, in the split: from K1b's plain accesses and
     outcomes (``keep``: ``lane, row, site, line, miss`` of
-    ``engine_scan.engine_l1_plain(..., keep=True)``), for each K2 lane of
-    ``group`` each core's L1 misses shifted by its shift, those at line
-    >= 0 kept as requests and put in (row, rank, site) order; each L2 set
-    walked on its own (``engine_scan._walk`` with a clock and no write,
-    so LRU with first-index ties); per (row, rank) the hits and the
-    requests that missed, the arbiter's queue rounds, and per core the
-    sums times ``wt``/``wa``/``wb``; then :func:`cluster_finish`.  Returns
-    what :func:`cluster_l2_cuda` returns."""
+    ``engine_scan.engine_l1_plain(..., keep=True)``), the compacted miss
+    stream (:func:`miss_stream_plain`) and each K2 lane's candidates and
+    request buckets (:func:`request_buckets_plain`); each (lane, L2 set)
+    bucket walked on its own (``engine_scan._walk`` with a clock and no
+    write, so LRU with first-index ties); per (row, rank) the hits and
+    the requests that missed, the arbiter's queue rounds, and per core
+    the sums times ``wt``/``wa``/``wb``; then :func:`cluster_finish`.
+    Returns what :func:`cluster_l2_cuda` returns."""
     del l1_sets
     dev = x.device
-    miss = keep["miss"]
-    m_lane, m_row, m_site, m_line = (keep[k][miss] for k in (
-        "lane", "row", "site", "line"))
-    # the misses are in engine order, lane by lane
-    at = torch.searchsorted(m_lane, torch.arange(
-        len(group["l1_lanes"]) + 1, device=dev)).tolist()
+    rows_of = [x.shape[1]] * x.shape[0] if lengths is None else list(lengths)
+    cand = request_buckets_plain(miss_stream_plain(keep, group, rows_of),
+                                 group, clusters)
+    hit = torch.zeros_like(cand["on"])
     K = len(group["k2_lanes"])
     sums = torch.zeros((K, MAX_CORES, NUM_SETS, K2_SUMS), dtype=torch.long,
                        device=dev)
-    rows_of = [x.shape[1]] * x.shape[0] if lengths is None else list(lengths)
-    for kl, (p, _, i, l1s, shifts) in enumerate(group["k2_lanes"]):
+    for kl, (p, _, i, _, _) in enumerate(group["k2_lanes"]):
         n, sets, ways, chan, _ = clusters[i]
         T = int(rows_of[p])
-        parts = []
-        for c in range(n):
-            sel = slice(at[l1s[c]], at[l1s[c] + 1])
-            row, site = m_row[sel], m_site[sel]
-            line = _wrap32(m_line[sel] + shifts[c])
-            keep_c = line >= 0
-            row, site, line = row[keep_c], site[keep_c], line[keep_c]
-            rank = torch.remainder(c - row, n)
-            parts.append(torch.stack([row, rank, site, line]))
-        row, rank, site, line = torch.cat(parts, dim=1)
-        order = torch.sort((row * n + rank) * SITES + site, stable=True)
-        row, rank, line = (a[order.indices] for a in (row, rank, line))
-        hit = torch.zeros_like(row, dtype=torch.bool)
-        if sets and row.numel():
-            bucket = torch.remainder(line, sets)
-            by = torch.sort(bucket, stable=True).indices
-            stamp = 2 * (torch.arange(row.numel(), device=dev) + 1)
-            m, _ = k1._walk(bucket[by], line[by], torch.zeros_like(line),
-                            stamp[by], sets, 1, ways)
-            hit[by] = ~m
-        cell = row * n + rank
+        if sets:
+            st = cand["bucket_start"][kl]
+            lo, hi = int(st[0]), int(st[-1])
+            bucket = torch.repeat_interleave(
+                torch.arange(sets, device=dev), torch.diff(st))
+            line = cand["req_line"][lo:hi]
+            m, _ = k1._walk(bucket, line, torch.zeros_like(line),
+                            2 * torch.arange(1, hi - lo + 1, device=dev),
+                            sets, 1, ways)
+            hit[cand["req_cand"][lo:hi][~m]] = True
+        at = slice(cand["cand_base"][kl], cand["cand_base"][kl + 1])
+        cell = cand["row"][at] * n + cand["rank"][at]
         l2h = torch.zeros(T * n, dtype=torch.long, device=dev).index_add_(
-            0, cell, hit.long()).view(T, n)
+            0, cell, hit[at].long()).view(T, n)
         reqs = torch.zeros(T * n, dtype=torch.long, device=dev).index_add_(
-            0, cell, (~hit).long()).view(T, n)
+            0, cell, (cand["on"][at] & ~hit[at]).long()).view(T, n)
         q = contention.queue_rounds(reqs, chan)
         w = x[p, :T, WT:WB + 1].to(torch.long)                  # (T, sets)
         core = torch.remainder(torch.arange(T, device=dev)[:, None]
@@ -487,10 +617,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ARGTYPES = {
     "cluster_l2_launch": (
         [_P, _LL, _P]                                   # rows, T, lengths
-        + [_I, _P, _P, _P, _P, _P, _I, _I]              # K1b's lanes, buffers
-        + [_LL, _P]                                     # slots, misses
+        + [_I, _P, _P, _P, _P, _LL, _LL, _LL]           # K1b's lanes, buffers
         + [_I] + [_P] * 8                               # K2 lanes
-        + [_I, _I, _I, _LL, _P, _P, _P, _P, _P]         # S, ways, buffers
+        + [_I, _I, _I, _LL, _LL, _LL]                   # S, ways, bounds
+        + [_P] * 10                                     # scratch
         + [_I, _I, _P, _P, _P, _P, _P, _P]              # outputs, K1's
         + [_P] * 4),                                    # out, stream
     "cluster_scan_tile": [_I, _I, _P],
@@ -526,84 +656,128 @@ def _padded(rows, fill):
     return [list(r) + [fill] * (MAX_CORES - len(r)) for r in rows]
 
 
+def _carve(sizes, dtype, dev, align: int) -> list:
+    """Slices of one new tensor, one per size, each starting at a
+    multiple of ``align`` elements."""
+    starts, at = [], 0
+    for n in sizes:
+        starts.append(at)
+        at += -(-n // align) * align
+    buf = torch.empty(max(at, 1), dtype=dtype, device=dev)
+    return [buf[a:a + n] for a, n in zip(starts, sizes)]
+
+
+def _k2_table_on(tab, mem, dev):
+    """A plan's ``k2_table`` with the machines' memory latencies ``mem``
+    appended, on ``dev``: one copy that does not wait for the card, made
+    the first time a (device, ``mem``) pair is asked for and kept in the
+    table, so that a launch again with the same plan and machines issues
+    no copy."""
+    key = (str(dev), mem.tobytes())
+    cache = tab.setdefault("on", {})
+    if key not in cache:
+        host = torch.from_numpy(np.concatenate([tab["flat"], mem]))
+        cache[key] = host.pin_memory().to(dev, non_blocking=True) if (
+            dev.type == "cuda") else host
+    return cache[key]
+
+
 @RouteCounted.over("l2set")
 def cluster_l2_cuda(x, keep, group, k1_outs, mach, clusters, *,
                     l1_sets: int, track_ab: bool = True, lengths=None,
-                    stats: dict | None = None):
+                    stats: dict | None = None, buffers: dict | None = None):
     """Launch K2 on a CUDA tensor ``x`` for the K2 lanes of a launch
     ``group`` of :func:`cluster_scan_plan`, from K1b's kept buffers
     (``keep``: ``engine_scan.engine_l1_cuda(..., keep=True)``) and K1's
     counters ``k1_outs``: returns ``(ctr, ctr_a, ctr_b)``, (Q, M,
-    MAX_CORES, 15) int32 each (zero past a lane's core count).  ``stats``
-    gets the launch's bucketed requests and its largest (lane, L2 set)
-    bucket, K2's longest chain (a synchronisation).  Raises on what the
-    kernel does not take and on a failed launch; never falls back."""
+    MAX_CORES, 15) int32 each (zero past a lane's core count).  The
+    lanes' arrays cross in one copy that does not wait for the card.
+    ``stats`` gets the launch's compacted misses, candidates, bucketed
+    requests and its largest (lane, L2 set) bucket, K2's longest chain (a
+    synchronisation); ``buffers`` gets K2's own buffers, trimmed to what
+    the launch wrote (a synchronisation): the compacted stream
+    (``row_off``, ``miss_line``, ``miss_row``, ``miss_site``), ``cand_base``
+    and the buckets (``req_line``, ``req_cand``, ``bucket_start`` per
+    lane), as :func:`miss_stream_plain` and :func:`request_buckets_plain`
+    give them.  The lanes' arrays and the programs' lengths come from
+    the group's ``k2_table`` (``lengths``, where given, must be those).
+    Raises on what the kernel does not take and on a failed launch; never
+    falls back."""
     x = _rows_on_card(x, "cluster_l2_cuda")
-    P, T, _ = x.shape
+    T = x.shape[1]
     dev = x.device
     clusters = [_cluster(c) for c in clusters]
-    host_len = [T] * P if lengths is None else torch.as_tensor(
-        lengths).cpu().tolist()
     lanes = group["k2_lanes"]
     outputs = group["k2_outputs"]
-    K, Q, L = len(lanes), len(outputs), len(group["l1_lanes"])
+    l1_lanes = group["l1_lanes"]
+    K, Q, L = len(lanes), len(outputs), len(l1_lanes)
     S = max(1, max(c[1] for c in clusters))
     ways = max((c[2] for c in clusters if c[1]), default=1)
-    mach = [_int32_on(a, dev, n) for a, n in zip(
-        mach, ("l1_hit_cycles", "uop_hit_cycles", "mem_latency"))]
-    M = mach[0].shape[0]
+    M = len(mach[0])
     Q1 = len(group["k1_outputs"])
     if K == 0 or Q == 0 or any(tuple(o.shape) != (Q1, M, NUM_COUNTERS)
                                for o in k1_outs):
         raise ValueError(f"cluster_l2_cuda: a group needs K2 lanes and "
                          f"outputs, and K1's counters ({Q1}, {M}, "
                          f"{NUM_COUNTERS})")
-    tiles2 = max(1, -(-T // K2_TILE_ROWS))
-    i32 = dict(dtype=torch.int32, device=dev)
-    k_prog = [p for p, *_ in lanes]
-    cl = [clusters[i] for _, _, i, _, _ in lanes]
-    arrays = dict(
-        l1_reg=[r for _, _, r, _ in group["l1_lanes"]],
-        l1_slot0=keep["slots"],
-        k_prog=k_prog, k_cores=[c[0] for c in cl], k_sets=[c[1] for c in cl],
-        k_ways=[c[2] for c in cl], k_chan=[c[3] for c in cl],
-        k_hit=[c[4] for c in cl],
-        k_l1=_padded([l1s for *_, l1s, _ in lanes], 0),
-        k_shift=_padded([sh for *_, sh in lanes], 0),
-        o_lane=[kl for _, _, _, kl, _ in outputs],
-        o_k1=_padded([q1s for *_, q1s in outputs], 0))
-    dv = {name: _int32_on(v, dev, name) for name, v in arrays.items()}
-    slots = keep["slots"][-1]
-    requests = sum(c[0] * host_len[p] * (SITES if group["l1_lanes"][l1s[0]][
-        2] >= 0 else 2) for (p, _, _, l1s, _), c in zip(lanes, cl))
-    n = K * S * tiles2
-    lengths_d = _int32_on(host_len, dev, "lengths")
-    misses = torch.empty(max(slots, 1), **i32)
-    hist = torch.empty(n + 1, **i32)
-    blocks = torch.empty(max(1, -(-n // 1024)), **i32)
-    req = torch.empty((max(requests, 1), 2), **i32)
-    counts = torch.empty((K, T), dtype=torch.int64, device=dev)
-    sums = torch.empty((K, MAX_CORES, NUM_SETS, K2_SUMS), **i32)
-    outs = [torch.zeros((Q, M, MAX_CORES, CLUSTER_COUNTERS), **i32)
-            for _ in range(NUM_SETS)]
+    tab = group["k2_table"]
+    if lengths is not None and [int(n) for n in lengths] != tab["flat"][
+            :tab["at"][1]].tolist():
+        raise ValueError("cluster_l2_cuda: lengths differ from the plan's")
+    mem = _int32_on(mach[2], "cpu", "mem_latency").numpy()
+    if mem.shape != (M,):
+        raise ValueError(f"cluster_l2_cuda: mem_latency must be ({M},)")
+    plan = _k2_table_on(tab, mem, dev)
+    ptr = [plan.data_ptr() + 4 * a for a in tab["at"]]    # mem at the end
+    k_ptrs = [ptr[2] + 4 * K * i for i in range(6)] + [
+        ptr[3], ptr[3] + 4 * K * MAX_CORES]
+    records = keep["slots"][-1]
+    R, C = tab["row_slots"], tab["candidates"]
+    hist_entries = tab["hist_entries"]
+    row_off, miss, meta, hist, blocks, req, sums = _carve(
+        [max(R, 1) + 1, 2 * max(records, 1), 3 * (K + 1) + 1,
+         hist_entries + 1, max(-(-R // k1.SCAN_BLOCK), K2_SCAN_CTAS + 1),
+         2 * max(C, 1), K * MAX_CORES * NUM_SETS * K2_SUMS],
+        torch.int32, dev, 64)
+    row_mask, miss_pm, state = _carve(
+        [max(4, -(-R // 4) * 4), max(records, 1), max(C, 1)], torch.uint8,
+        dev, 256)
+    outs = torch.empty((NUM_SETS, Q, M, MAX_CORES, CLUSTER_COUNTERS),
+                       dtype=torch.int32, device=dev).unbind(0)
     k1c = [o.contiguous() for o in k1_outs]
-    _launch(x, "cluster_l2_launch", x.data_ptr(), T, lengths_d.data_ptr(),
-            L, *_ptrs(dv["l1_reg"], dv["l1_slot0"], keep["recs"],
-                      keep["outcome"], keep["hist"]), l1_sets, keep["tiles"],
-            slots, misses.data_ptr(),
-            K, *_ptrs(*(dv[k] for k in ("k_prog", "k_cores", "k_sets",
-                                        "k_ways", "k_chan", "k_hit", "k_l1",
-                                        "k_shift"))),
-            S, ways, int(bool(track_ab)), requests,
-            *_ptrs(hist, blocks, req, counts, sums),
-            Q, M, *_ptrs(dv["o_lane"], dv["o_k1"], mach[2], *k1c), *_ptrs(
-                *outs), library=_library)
+    _launch(x, "cluster_l2_launch", x.data_ptr(), T, ptr[0], L, ptr[1],
+            *_ptrs(keep["recs"], keep["outcome"], keep["hist"]),
+            l1_sets * keep["tiles"], records, R, K, *k_ptrs,
+            S, ways, int(bool(track_ab)), C, tab["tiles"], hist_entries,
+            *_ptrs(row_mask, row_off, miss, miss_pm, meta, hist, blocks, req,
+                   state, sums),
+            Q, M, ptr[4], ptr[5], ptr[-1], *_ptrs(*k1c, *outs),
+            library=_library)
     cluster_l2_cuda.count(dict(route="l2set"))
+    if stats is not None or buffers is not None:
+        base = meta[:3 * (K + 1)].view(3, K + 1).to(torch.long).cpu()
+        starts = []
+        for k, (_, _, i, _, _) in enumerate(lanes):
+            c = clusters[i]
+            t = int(base[1, k + 1] - base[1, k])
+            starts.append(hist[int(base[2, k]) + t * torch.arange(
+                c[1] + 1 if c[1] else 0, device=dev)].to(torch.long))
+        nreq = int(hist[int(base[2, K])])
+        nmiss = int(row_off[R])
     if stats is not None:
-        starts = hist[0:n:tiles2].to(torch.long)
-        sizes = torch.diff(torch.cat([starts, hist[n:].to(torch.long)]))
-        stats.update(bucketed_requests=int(hist[n]),
-                     largest_bucket=int(sizes.max()))
+        sizes = [torch.diff(st) for st in starts if st.numel()]
+        stats.update(
+            compacted_misses=nmiss, candidates=int(base[0, K]),
+            bucketed_requests=nreq,
+            largest_bucket=int(torch.cat(sizes).max()) if sizes else 0)
+    if buffers is not None:
+        m = miss[:2 * nmiss].view(-1, 2).to(torch.long)
+        buffers.update(
+            row_off=row_off[:R + 1].to(torch.long), miss_line=m[:, 0],
+            miss_row=m[:, 1] >> 3, miss_site=m[:, 1] & 7,
+            cand_base=base[0].tolist(),
+            req_line=req[0:2 * nreq:2].to(torch.long),
+            req_cand=req[1:2 * nreq:2].to(torch.long), bucket_start=starts)
     return tuple(outs)
 
 

@@ -4,7 +4,9 @@
 // this header into every library's name).  Three passes: per-CTA sums, a
 // scan of the sums in one CTA, then each CTA's entries with its offset.
 // The total lands at v[n].  TAG only names the kernels of each caller
-// apart in a profile (K1b takes 0, K2 1).
+// apart in a profile (K1b takes 0, K2 1).  launch_dev scans a count that
+// only the card knows (*n_dev entries, total included) with a grid fixed
+// by the host: each CTA takes a stretch of whole BLOCKs.
 
 #pragma once
 
@@ -94,6 +96,54 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Entries [lo, hi) of the CTA's stretch when nb CTAs share n entries.
+__device__ inline void dev_stretch(long long n, long long& lo,
+                                   long long& hi) {
+  const long long per =
+      ((n + gridDim.x - 1) / gridDim.x + BLOCK - 1) / BLOCK * BLOCK;
+  lo = blockIdx.x * per;
+  hi = lo + per < n ? lo + per : n;
+}
+
+template <int TAG>
+__global__ void __launch_bounds__(THREADS)
+    scan_sums_dev(const unsigned* v, const unsigned* n_dev,
+                  unsigned* blocks) {
+  long long lo, hi;
+  dev_stretch(*n_dev, lo, hi);
+  unsigned s = 0;
+  for (long long k = lo + threadIdx.x; k < hi; k += THREADS) s += v[k];
+  unsigned total;
+  block_exclusive_scan(s, total);
+  if (threadIdx.x == 0) blocks[blockIdx.x] = total;
+}
+
+template <int TAG>
+__global__ void __launch_bounds__(THREADS)
+    scan_apply_dev(unsigned* v, const unsigned* n_dev,
+                   const unsigned* blocks) {
+  long long lo, hi;
+  dev_stretch(*n_dev, lo, hi);
+  unsigned carry = blocks[blockIdx.x];
+  for (long long b0 = lo; b0 < hi; b0 += BLOCK) {
+    unsigned item[ITEMS];
+    unsigned s = 0;
+    for (int i = 0; i < ITEMS; ++i) {
+      const long long k = b0 + threadIdx.x * ITEMS + i;
+      item[i] = k < hi ? v[k] : 0u;
+      s += item[i];
+    }
+    unsigned total;
+    unsigned run = carry + block_exclusive_scan(s, total);
+    for (int i = 0; i < ITEMS; ++i) {
+      const long long k = b0 + threadIdx.x * ITEMS + i;
+      if (k < hi) v[k] = run;
+      run += item[i];
+    }
+    carry += total;
+  }
+}
+
 // The scan's launches on `s`: v holds n counts and room for the total at
 // v[n]; blocks holds one entry per BLOCK counts.
 template <int TAG>
@@ -103,6 +153,17 @@ cudaError_t launch(unsigned* v, long long n, unsigned* blocks,
   scan_sums<TAG><<<nb, THREADS, 0, s>>>(v, n, blocks);
   scan_blocks<TAG><<<1, 1024, 0, s>>>(blocks, nb, v + n);
   scan_apply<TAG><<<nb, THREADS, 0, s>>>(v, n, blocks);
+  return cudaGetLastError();
+}
+
+// The same over *n_dev entries (the last one a zero, so that the total
+// lands there) by nb CTAs; blocks holds nb + 1 entries.
+template <int TAG>
+cudaError_t launch_dev(unsigned* v, const unsigned* n_dev, int nb,
+                       unsigned* blocks, cudaStream_t s) {
+  scan_sums_dev<TAG><<<nb, THREADS, 0, s>>>(v, n_dev, blocks);
+  scan_blocks<TAG><<<1, 1024, 0, s>>>(blocks, nb, blocks + nb);
+  scan_apply_dev<TAG><<<nb, THREADS, 0, s>>>(v, n_dev, blocks);
   return cudaGetLastError();
 }
 

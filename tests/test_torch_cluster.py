@@ -392,9 +392,10 @@ def test_plan_refuses_what_k2_does_not_take(cluster, match):
 
 def test_plan_constants_match_the_c_source():
     text = SRC.read_text()
-    for py, c in (("K2_TILE_ROWS", "TILE_ROWS"),
+    for py, c in (("K2_TILE_CANDIDATES", "TILE_CANDS"),
                   ("K2_HIST_WARPS", "HIST_WARPS"),
                   ("K2_WALK_THREADS", "WALK_THREADS"),
+                  ("K2_SCAN_CTAS", "SCAN_CTAS"),
                   ("MAX_CORES", "MAX_CORES"), ("K2_SUMS", "NSUM")):
         m = re.search(rf"constexpr int {c} = (\d+);", text)
         assert int(m.group(1)) == getattr(k2, py), py
@@ -473,10 +474,13 @@ _GEOS = (4, 16)
 
 
 def _session_sweep(api, pkg, geos, **kw):
+    # An L2 no test of the reference uses: its Session compiles once per
+    # shape and process, and tests/test_cluster.py counts the compiles of
+    # its own shape, whichever worker runs both files.
     return api.Sweep(
         kernels=("gemv",), capacity=(3, 5),
         l1_geometry=tuple(api.L1Geometry.from_kbytes(kb) for kb in geos),
-        cores=(1, 2), cluster=pkg.ClusterConfig(l2_sets=32, l2_ways=3,
+        cores=(1, 2), cluster=pkg.ClusterConfig(l2_sets=16, l2_ways=3,
                                                 mem_channels=3),
         kernel_params="reduced", fold=False, **kw)
 
