@@ -84,6 +84,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
                a reduced f32 model on the card vs the same on the CPU;
   5. serve     a ServeEngine with dispersed KV pages answers a seeded
                steady-traffic scenario at full width;
+     moe       the MoE family at full width, each model freed before the
+               next is built: deepseek-v2-lite-16b at full depth (MLA, one
+               dense layer, 26 layers of 64 routed experts top-6 and 2
+               shared) prefills 4 x 512 tokens (logits' shape, finite,
+               aux loss finite and >= 0); phi3.5-moe-42b-a6.6b with its
+               depth cut to 16 of 32 layers (memory) prefills 4 x 512
+               through the flash kernel (D = 128, GQA 32/8), one launch
+               per layer, all on the tensor cores, K5 held against sdpa
+               layer by layer on the prefill's own inputs (the
+               end-to-end comparison with sdpa, free-running and with
+               the expert choices pinned, is reported: the experts'
+               outputs dominate the residual, so it does not hold
+               phase_prefill's bounds); for each model, a reduced f32
+               copy on the card vs the same weights on the CPU (prefill
+               and 8 decode steps), any token routed to another expert
+               set a near-tie of its router;
+     serve_moe full-width deepseek-v2-lite serves the seeded steady
+               scenario with dispersed KV: its latent cache (c, kr)
+               paged through the pool, every request done; one decode
+               step's time alone and its device time;
+     serving   kv_dispersion and serving_slo through
+               repro_torch.benchmarks.run on the card: row counts,
+               serving_slo's axes and Pareto fronts equal to
+               BENCH_core.json's, kv_dispersion's rows equal to its pool
+               on the CPU;
   6. roofline  the measured roofline (repro_torch.benchmarks.roofline) on
                the card: every row's schedule bytes agree with the closed
                form, the row count is the reference grid's, K3, K4 and
@@ -129,7 +154,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.benchmarks import (cluster_sweep, dse, roofline,  # noqa: E402
+from repro_torch.benchmarks import (cluster_sweep, dse,  # noqa: E402
+                                    kv_dispersion, roofline,
                                     vmem_dispersion)
 from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.benchmarks.engine_timing import (  # noqa: E402
@@ -147,7 +173,8 @@ from repro_torch.kernels import dispersed_gemm as dg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.ref import cast_like  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, attention  # noqa: E402
+from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.serve import TRAFFIC_MIXES, ServeEngine, generate  # noqa: E402
 
 ARCH = "phi3-mini-3.8b"
@@ -1844,6 +1871,395 @@ def phase_serve(model) -> None:
           f"statuses {[r.status for r in reqs]}")
 
 
+# --------------------------------------------------------------------- moe --
+
+MOE_DEEPSEEK = "deepseek-v2-lite-16b"
+MOE_PHI = "phi3.5-moe-42b-a6.6b"
+# phi3.5-moe's 32 layers hold 83.7 GB of bf16 weights, more than the
+# card's 80 GB: its full-width check runs the first 16 (42.1 GB)
+MOE_PHI_LAYERS = 16
+# A token whose top-k expert set differs between two runs must sit on a
+# near-tie of its router: the k-th and (k+1)-th probabilities (f32)
+# closer than this
+ROUTE_TIE = 1e-5
+MOE_DECODE_STEPS = 8
+# Reduced f32 model on the card vs the same weights on the CPU
+MOE_TOL = 1e-3
+
+
+def weight_gb(model) -> float:
+    return sum(p.numel() * p.element_size()
+               for p in model.parameters()) / 1e9
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE routing decision made inside, as (probs, expert ids) on
+    the host, one entry per MoE layer call (mlp.moe looks ``route`` up at
+    each call)."""
+    calls, route = [], tmlp.route
+
+    def recording(p, cfg, x):
+        out = route(p, cfg, x)
+        calls.append((out[0].float().cpu(), out[2].cpu()))
+        return out
+
+    tmlp.route = recording
+    try:
+        yield calls
+    finally:
+        tmlp.route = route
+
+
+@contextlib.contextmanager
+def pinned_routes(recorded):
+    """Every MoE call inside takes the expert ids of a recorded run (in
+    call order), with gates from its own router probabilities."""
+    calls, route = iter(recorded), tmlp.route
+
+    def pinned(p, cfg, x):
+        probs = route(p, cfg, x)[0]
+        ids = next(calls)[1].to(x.device)
+        gate = probs.gather(-1, ids)
+        return probs, gate / gate.sum(-1, keepdim=True).clamp(min=1e-9), ids
+
+    tmlp.route = pinned
+    try:
+        yield
+    finally:
+        tmlp.route = route
+
+
+def first_divergence(got, want, k) -> dict:
+    """For the tokens of one forward whose expert sets differ between two
+    recorded runs at some layer: how many, how many differ first at the
+    first MoE layer (whose inputs differ only by the attention's
+    rounding: no other token has diverged yet), and the largest gap
+    between the k-th and (k+1)-th router probability of ``want`` there."""
+    bad = torch.stack([(a.sort(-1).values != b.sort(-1).values).any(-1)
+                       for (_, a), (_, b) in zip(got, want)])   # (L,B,S)
+    top = want[0][0].topk(k + 1, -1).values
+    gaps = (top[..., k - 1] - top[..., k])[bad[0]]
+    return dict(tokens=int(bad.any(0).sum()),
+                at_first_layer=int(bad[0].sum()),
+                max_gap=float(gaps.max()) if gaps.numel() else 0.0)
+
+
+def route_differences(got, want, k) -> tuple[int, int]:
+    """Tokens whose top-k expert sets differ between two recorded runs,
+    and how many of those are near-ties (gap between the k-th and (k+1)-th
+    probability of ``want`` under ROUTE_TIE)."""
+    check(len(got) == len(want), f"{len(got)} vs {len(want)} MoE calls")
+    differ = ties = 0
+    for (_, ids_a), (probs_b, ids_b) in zip(got, want):
+        bad = (ids_a.sort(-1).values != ids_b.sort(-1).values).any(-1)
+        if bool(bad.any()):
+            top = probs_b.topk(k + 1, -1).values[bad]
+            differ += int(bad.sum())
+            ties += int(((top[:, k - 1] - top[:, k]) < ROUTE_TIE).sum())
+    return differ, ties
+
+
+def check_moe_reduced(cfg, impl: str, seed: int) -> dict:
+    """A reduced f32 copy of ``cfg`` on the card against the same weights
+    on the CPU: prefill logits and MOE_DECODE_STEPS decode steps (logits,
+    and the caches at the end) within MOE_TOL; tokens routed to another
+    expert set must be near-ties."""
+    small = dataclasses.replace(cfg.reduced(), dtype="float32",
+                                attn_impl=impl)
+    m_gpu = Model(small, device="cuda")
+    m_gpu.init(torch.Generator(device="cuda").manual_seed(seed))
+    m_cpu = Model(small, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in
+                           m_gpu.state_dict().items()})
+    sb = _prompt_batch(small, 2, 128, "cpu", seed=seed + 1)
+    with recorded_routes() as r_gpu:
+        got = m_gpu.prefill({k: v.cuda() for k, v in sb.items()}).cpu()
+    with recorded_routes() as r_cpu:
+        want = m_cpu.prefill(sb)
+    prefill_err = float((got - want).abs().max())
+    differ, ties = route_differences(r_gpu, r_cpu, small.moe_top_k)
+
+    b, smax = 2, 2 * MOE_DECODE_STEPS
+    c_gpu, c_cpu = m_gpu.init_cache(b, smax), m_cpu.init_cache(b, smax)
+    toks = sb["tokens"][:, :MOE_DECODE_STEPS]
+    decode_err = 0.0
+    for t in range(MOE_DECODE_STEPS):
+        step = {"tokens": toks[:, t:t + 1],
+                "positions": torch.full((b, 1), t, dtype=torch.long)}
+        with recorded_routes() as r_gpu:
+            lg, c_gpu = m_gpu.decode_step(
+                c_gpu, {k: v.cuda() for k, v in step.items()})
+        with recorded_routes() as r_cpu:
+            lc, c_cpu = m_cpu.decode_step(c_cpu, step)
+        decode_err = max(decode_err, float((lg.cpu() - lc).abs().max()))
+        d, t_ = route_differences(r_gpu, r_cpu, small.moe_top_k)
+        differ, ties = differ + d, ties + t_
+    cache_err = max(float((c_gpu[k].cpu() - c_cpu[k]).abs().max())
+                    for k in c_cpu)
+    out = dict(arch=cfg.name, impl=impl, prefill_err=prefill_err,
+               decode_err=decode_err, decode_steps=MOE_DECODE_STEPS,
+               cache_keys="/".join(c_cpu), cache_err=cache_err,
+               route_differ=differ, route_near_ties=ties, tol=MOE_TOL)
+    log("moe", check="reduced_f32_card_vs_cpu", **out)
+    check(max(prefill_err, decode_err, cache_err) <= MOE_TOL,
+          f"reduced {cfg.name} on the card off by {out}")
+    check(ties == differ, f"{differ - ties} tokens of reduced {cfg.name} "
+          "took another expert set on the card without a near-tie")
+    return out
+
+
+def phase_moe_deepseek(model) -> dict:
+    """Full-width, full-depth deepseek-v2-lite prefill (MLA, a leading
+    dense layer, 64 routed experts top-6 and 2 shared) on 4 x 512 tokens:
+    logits of the right shape, finite, and a finite aux loss >= 0."""
+    cfg = model.cfg
+    batch = _prompt_batch(cfg, PREFILL_BATCH, PREFILL_LEN, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, aux = model.train_logits(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    aux = float(aux)
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               dense_layers=cfg.first_dense_layers, d=cfg.d_model,
+               experts=cfg.num_experts, top_k=cfg.moe_top_k,
+               shared=cfg.num_shared_experts, kv_lora_rank=cfg.kv_lora_rank,
+               dtype=cfg.dtype, tokens=f"{PREFILL_BATCH}x{PREFILL_LEN}",
+               first_call_s=round(wall, 3), aux=aux,
+               peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    log("moe", **out)
+    check(logits.shape == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
+          f"deepseek prefill logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()),
+          "non-finite deepseek prefill logits")
+    check(np.isfinite(aux) and aux >= 0.0, f"deepseek aux loss {aux}")
+    out["reduced"] = check_moe_reduced(cfg, "sdpa", seed=4)
+    return out
+
+
+def check_layers_flash(model, batch) -> dict:
+    """K5 on the main path's own inputs: each layer's attention block
+    through flash against sdpa on the same normed input (the sdpa run's),
+    within the bf16 tolerance of the kernel checks (TOL)."""
+    cfg = model.cfg
+    x, pos = model.embed[batch["tokens"]], batch["positions"]
+    out = dict(ok=True, max_abs_err=0.0, max_abs_attn=0.0)
+    with torch.no_grad():
+        for blk in model.blocks:
+            h = model._norm(blk.norm1, x)
+            want = attention.attention(blk.mixer, cfg, h, pos, impl="sdpa")
+            got = attention.attention(blk.mixer, cfg, h, pos, impl="flash")
+            ok, err = _close(got, want, *TOL[torch.bfloat16])
+            out["ok"] &= ok
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["max_abs_attn"] = max(out["max_abs_attn"],
+                                      float(want.float().abs().max()))
+            x = x + want
+            x = x + model._ffn(blk, model._norm(blk.norm2, x))[0]
+    return out
+
+
+def phase_moe_phi(model) -> dict:
+    """Full-width phi3.5-moe (depth cut to MOE_PHI_LAYERS) prefill on 4 x
+    512 tokens through the flash kernel (D = 128, GQA 32/8): one K5
+    launch per layer, all on the tensor cores, and K5 against sdpa layer
+    by layer on the prefill's own inputs; the end-to-end comparison with
+    the sdpa path is reported (see below).  Then a reduced f32 copy
+    through flash on the card vs the CPU."""
+    cfg = model.cfg
+    batch = _prompt_batch(cfg, PREFILL_BATCH, PREFILL_LEN, "cuda")
+    with recorded_routes() as r_sdpa:
+        t0 = time.perf_counter()
+        sdpa = _prefill(model, "sdpa", batch)
+        t_sdpa = time.perf_counter() - t0
+    with recorded_routes() as r_flash:
+        fa.flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        flash = _prefill(model, "flash", batch)
+        t_flash = time.perf_counter() - t0
+        launches = fa.flash_attention_cuda.launches
+        launches_tc = fa.flash_attention_cuda.launches_tc
+    check(flash.shape == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
+          f"phi3.5-moe prefill logits shape {tuple(flash.shape)}")
+    check(bool(torch.isfinite(flash).all()),
+          "non-finite phi3.5-moe prefill logits")
+
+    def agreement(a):
+        return (float((a.float() - sdpa.float()).abs().max()),
+                float((a.argmax(-1) == sdpa.argmax(-1)).float().mean()))
+
+    # Free-running, each path routes on its own router.  The reference's
+    # init gives the experts a fan-in of E, so their outputs dominate the
+    # residual (rms ~100-500 against the attention's ~1): a token on a
+    # near-tie of its router that one bf16 ulp of attention output moves
+    # to another expert changes by O(100), and through its keys and
+    # values every later token of its sequence.  Even with the expert
+    # choices pinned to the sdpa run's, bf16 rounding of that residual
+    # carries the difference through 16 layers.  So phase_prefill's
+    # end-to-end bounds (top-1 >= 0.9, |dlogit| <= 0.5) do not apply
+    # here; both comparisons are reported, and K5 is held layer by layer
+    # on the main path's own inputs (check_layers_flash).
+    dlogit_free, top1_free = agreement(flash)
+    diverged = first_divergence(r_flash, r_sdpa, cfg.moe_top_k)
+    with pinned_routes(r_sdpa):
+        pinned = _prefill(model, "flash", batch)
+    dlogit, top1 = agreement(pinned)
+    layers = check_layers_flash(model, batch)
+    out = dict(arch=cfg.name,
+               layers=f"{cfg.num_layers} of {get(MOE_PHI).num_layers} "
+                      "(memory)",
+               d=cfg.d_model, heads=cfg.num_heads,
+               kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+               experts=cfg.num_experts, top_k=cfg.moe_top_k,
+               dtype=cfg.dtype, tokens=f"{PREFILL_BATCH}x{PREFILL_LEN}",
+               flash_launches=launches, flash_launches_tc=launches_tc,
+               max_abs_dlogit_vs_sdpa=dlogit_free,
+               top1_agreement_vs_sdpa=top1_free,
+               diverged_tokens=diverged["tokens"],
+               diverged_at_first_layer=diverged["at_first_layer"],
+               max_gap_at_first_layer=diverged["max_gap"],
+               pinned_max_abs_dlogit=dlogit, pinned_top1=top1,
+               layer_max_abs_err=layers["max_abs_err"],
+               layer_max_abs_attn=layers["max_abs_attn"],
+               first_call_s_flash=round(t_flash, 3),
+               first_call_s_sdpa=round(t_sdpa, 3))
+    log("moe", **out)
+    check(launches == launches_tc == cfg.num_layers,
+          f"{launches} flash launches ({launches_tc} on the tensor cores), "
+          f"want one per layer ({cfg.num_layers}), all on the tensor cores")
+    check(layers["ok"], f"phi3.5-moe: K5 vs sdpa layer by layer {layers}")
+    out["reduced"] = check_moe_reduced(cfg, "flash", seed=6)
+    return out
+
+
+def phase_serve_moe(model) -> dict:
+    """Full-width deepseek-v2-lite serves the seeded steady scenario with
+    its latent cache paged through the dispersed pool."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    scen = generate(dataclasses.replace(
+        TRAFFIC_MIXES["steady"], n_requests=8, vocab=cfg.vocab_size,
+        max_len=48), seed=0)
+    engine = ServeEngine(cfg, model, slots=4, max_len=64, page_size=16,
+                         kv_mode="dispersed", device="cuda")
+    t0 = time.perf_counter()
+    reqs = engine.serve(scen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in reqs)
+    st = engine.kv_stats()
+    out = dict(arch=cfg.name, paged="/".join(engine._paged),
+               requests=len(reqs),
+               done=sum(r.status == "done" for r in reqs),
+               steps=len(engine.step_log), tokens_out=tokens,
+               prompt_tokens=sum(len(r.prompt) for r in reqs),
+               wall_s=round(wall, 3), tokens_per_s=round(tokens / wall, 2),
+               hits=st["hits"], misses=st["misses"], fills=st["fills"],
+               spills=st["spills"], hot_pages=st["hot_pages"],
+               page_bytes=st["hot_bytes"] // st["hot_pages"])
+    # Where a step's time goes: the model's decode step alone at the
+    # engine's batch (CUDA events over back-to-back steps) against the
+    # engine's whole step
+    cache = model.init_cache(4, 64)
+    step = {"tokens": torch.ones((4, 1), dtype=torch.long, device="cuda"),
+            "positions": torch.full((4, 1), 8, dtype=torch.long,
+                                    device="cuda")}
+    out["decode_step_ms"] = cuda_ms(lambda: model.decode_step(cache, step),
+                                    warmup=2, iters=5)
+    out["engine_step_ms"] = wall * 1e3 / max(len(engine.step_log), 1)
+    # the kernels' own device time in one decode step (torch.profiler)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_step(cache, step)
+        torch.cuda.synchronize()
+    out["decode_step_device_ms"] = _engine_device_ms(prof, re.compile(""))
+    del cache
+    log("serve_moe", **out)
+    check(engine._paged == ("c", "kr"),
+          f"dispersed deepseek pages {engine._paged}, want ('c', 'kr')")
+    check(all(r.status == "done" for r in reqs),
+          f"statuses {[r.status for r in reqs]}")
+    return out
+
+
+def phase_moe() -> dict:
+    """[moe] and [serve_moe]: deepseek-v2-lite at full width and depth,
+    then phi3.5-moe at full width, each freed before the next is built.
+    Returns the figures and phi3.5-moe's K5 launches."""
+    out = {}
+    for arch in (MOE_DEEPSEEK, MOE_PHI):
+        cfg = get(arch)
+        if arch == MOE_PHI:
+            cfg = dataclasses.replace(cfg, num_layers=MOE_PHI_LAYERS)
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda")
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        log("model", arch=cfg.name, layers=cfg.num_layers,
+            params=sum(p.numel() for p in model.parameters()),
+            weight_gb=round(weight_gb(model), 3),
+            build_s=round(time.perf_counter() - t0, 3))
+        if arch == MOE_DEEPSEEK:
+            out["deepseek"] = phase_moe_deepseek(model)
+            out["serve"] = phase_serve_moe(model)
+        else:
+            out["phi"] = phase_moe_phi(model)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- serving --
+
+SERVING_ROWS = {"kv_dispersion": 8, "serving_slo": 24}
+
+
+def phase_serving() -> dict:
+    """Both serving suites through repro_torch.benchmarks.run on the card:
+    their row counts, serving_slo's extra (axes and Pareto fronts) equal to
+    BENCH_core.json's, and kv_dispersion's rows (us_per_call aside) equal
+    to the same suite with its pool on the CPU."""
+    bench = json.loads((ROOT / "BENCH_core.json").read_text())["suites"]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "serving_report.json"
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = bench_run.main(["--json", str(path)] + list(SERVING_ROWS),
+                            session=api.Session())
+    check(rc == 0, f"serving: run.py exited {rc}")
+    report = json.loads(path.read_text())
+    out = {}
+    for suite, n in SERVING_ROWS.items():
+        rec = report["suites"][suite]
+        out[suite] = dict(rows=rec["rows"], wall_s=rec["wall_s"],
+                          device=rec["device"])
+        log("serving", suite=suite, **out[suite])
+        check(rec["rows"] == n == bench[suite]["rows"],
+              f"serving: {suite} gave {rec['rows']} rows, want {n}")
+        check(rec["device"].startswith("cuda"),
+              f"serving: {suite} ran on {rec['device']}")
+    extra = report["suites"]["serving_slo"]["extra"]
+    equal = extra == bench["serving_slo"]["extra"]
+    log("serving", check="serving_slo_extra_vs_bench", equal=equal,
+        fronts=sum(len(v) for f in extra["pareto"].values()
+                   for v in f.values()))
+    check(equal, "serving: serving_slo's extra differs from BENCH_core.json")
+
+    def strip(rows):
+        return [{k: str(v) for k, v in r.items() if k != "us_per_call"}
+                for r in rows]
+
+    card = _csv_rows(text.getvalue(), "name")
+    cpu = kv_dispersion.run(device="cpu")
+    equal = strip(card) == strip(cpu)
+    log("serving", check="kv_dispersion_card_vs_cpu", rows=len(cpu),
+        equal=equal)
+    check(equal, "serving: kv_dispersion's rows on the card differ from "
+          "the CPU's")
+    return out
+
+
 # ---------------------------------------------------------------- roofline --
 
 # The reference's measured grid (benchmarks/roofline.py): 2 GEMM cases x
@@ -2390,6 +2806,9 @@ def main() -> int:
     phase_serve(model)
     del model
     torch.cuda.empty_cache()
+    moe = phase_moe()
+    moe_launches = moe["phi"]["flash_launches"]
+    phase_serving()
     paths = phase_roofline()
     flash_timing = phase_timing()
     gemm = phase_gemm_timing()
@@ -2403,7 +2822,8 @@ def main() -> int:
     route_launches = roofline.perf_stats()["route_launches"]
     flash_routes = {route: sum(r[route] for r in route_launches[
         "flash_attention"].values()) for route in ("tc", "fma")}
-    flash_routes["tc"] += prefill_launches     # all on the tensor cores
+    # all on the tensor cores
+    flash_routes["tc"] += prefill_launches + moe_launches
 
     def gemm_entry(name, replaces):
         g = dict(gemm[name])
@@ -2429,7 +2849,8 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:118",
-             **launches("flash_attention", {"prefill": prefill_launches}),
+             **launches("flash_attention", {"prefill": prefill_launches,
+                                            "prefill_moe": moe_launches}),
              launches_by_route=flash_routes,
              roofline_launches_by_precision_and_route=route_launches[
                  "flash_attention"],

@@ -30,9 +30,10 @@ launches from ``perf_stats()``), ``prepare_s``/``engine_s`` the host
 seconds spent preparing traces and in engine calls, and ``device`` names
 where it ran.  The roofline's ``json_extra()`` is its record's ``extra``.
 
-The reference's ``kv_dispersion``, ``serving_slo`` and ``network_sweep``
-suites are not ported yet: asking for one exits 2 with the ROADMAP item
-that brings it.
+The serving suites (``kv_dispersion``, ``serving_slo``) run the pool and
+the serving engine on ``--device``; their records count no engine calls.
+The reference's ``network_sweep`` suite is not ported yet: asking for it
+exits 2 with the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ _MODULES = {
     "roofline": "repro_torch.benchmarks.roofline",
     "cluster_sweep": "repro_torch.benchmarks.cluster_sweep",
     "dse": "repro_torch.benchmarks.dse",
+    "kv_dispersion": "repro_torch.benchmarks.kv_dispersion",
+    "serving_slo": "repro_torch.benchmarks.serving_slo",
 }
 
 SUITES = tuple(_MODULES)
@@ -67,8 +70,6 @@ SUITES = tuple(_MODULES)
 # The reference's suites the port has not reached, with the ROADMAP item
 # that ports each.
 NOT_PORTED = {
-    "kv_dispersion": "P5 (the remaining model families and serving)",
-    "serving_slo": "P5 (the remaining model families and serving)",
     "network_sweep": "P6 (the bridge)",
 }
 

@@ -1,4 +1,5 @@
-"""Attention blocks: GQA/MHA with RoPE and optional qk-norm.
+"""Attention blocks: GQA/MHA with RoPE and optional qk-norm, and
+DeepSeek-V2 Multi-head Latent Attention (MLA).
 
 Two entry modes share weights:
   * ``attention``: full-sequence attention (train / prefill), through the
@@ -6,10 +7,16 @@ Two entry modes share weights:
     (``impl='flash'``, ``kernels.ops.flash_attention``);
   * ``decode_attention``: one token against a (B, S_max, Hkv, D) KV cache.
 
+MLA (``mla_attention``, ``mla_decode``) caches the compressed latent
+``c`` (B, S, r) and the shared RoPE key ``kr`` (B, S, dr).  Like the
+reference it runs as plain products: its query/key head dim (dn + dr) is
+not its value head dim, and the FlashAttention kernel takes one head dim
+for q, k and v.
+
 On one card the reference's tensor-parallel KV head expansion is a no-op,
-so it has no counterpart here.  Attention bias, sliding windows, M-RoPE,
-MLA and cross-attention belong to families not ported yet; ``Model``
-rejects their configs.
+so it has no counterpart here.  Attention bias, sliding windows, M-RoPE
+and cross-attention belong to families not ported yet; ``Model`` rejects
+their configs.
 """
 
 from __future__ import annotations
@@ -122,3 +129,100 @@ def decode_attention(p, cfg, x, positions, cache_k, cache_v):
     out = torch.einsum("bhgs,bshd->bhgd", probs, cache_v.float())
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return out @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 Multi-head Latent Attention (MLA).
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """``wq`` (d, h*(dn+dr)), ``wdkv`` (d, r) compresses, ``wkr`` (d, dr)
+    gives the shared RoPE key, ``wuk`` (r, h*dn) and ``wuv`` (r, h*dv)
+    expand, ``wo`` (h*dv, d); ``kv_norm`` an f32 RMSNorm of width r."""
+
+    def __init__(self, cfg, dtype, device="cuda"):
+        super().__init__()
+        dev = common.resolve_device(device)
+        d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+        def w(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev),
+                                requires_grad=False)
+
+        self.wq, self.wdkv, self.wkr = w(d, h * (dn + dr)), w(d, r), w(d, dr)
+        self.wuk, self.wuv = w(r, h * dn), w(r, h * dv)
+        self.wo = w(h * dv, d)
+        self.kv_norm = common.Norm(r, "rms", dev)
+
+    def init_(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wdkv, self.wkr, self.wuk, self.wuv, self.wo):
+            common.dense_init_(w, gen)
+
+
+def _mla_project(p, cfg, x, positions):
+    """q_nope (B,S,h,dn), q_rope (B,S,h,dr) (rope applied), the latent
+    c (B,S,r) and the rope key kr (B,S,dr)."""
+    b, s, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ p.wq).reshape(b, s, cfg.num_heads, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = common.apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    c = common.rmsnorm(p.kv_norm, x @ p.wdkv, cfg.norm_eps)
+    kr = common.apply_rope((x @ p.wkr)[:, :, None, :], positions,
+                           cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c, kr
+
+
+def mla_attention(p, cfg, x, positions, *, causal=True):
+    """Full-sequence MLA: k_nope and v are materialised from the latent.
+    Returns (out, (c, kr)), the cache payload a server stores."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope, c, kr = _mla_project(p, cfg, x, positions)
+    k_nope = (c @ p.wuk).reshape(b, s, h, dn)
+    v = (c @ p.wuv).reshape(b, s, h, dv)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
+                           k_nope.float())
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr.float())
+              ) * (dn + dr) ** -0.5
+    if causal:
+        qpos = torch.arange(s, device=x.device)[:, None]
+        kpos = torch.arange(s, device=x.device)[None, :]
+        logits = logits.masked_fill(qpos < kpos, NEG_INF)
+    probs = torch.softmax(logits, -1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    out = out.reshape(b, s, h * dv).to(x.dtype)
+    return out @ p.wo, (c, kr)
+
+
+def mla_decode(p, cfg, x, positions, cache_c, cache_kr):
+    """One-token MLA decode against the latent cache, in the absorbed
+    form (q_nope projected into the latent space once).  cache_c:
+    (B,S_max,r), cache_kr: (B,S_max,dr); the token's latent and rope key
+    are written into them in place (the reference's one-hot blend gives
+    the same values).  Returns the attention output (B,1,d)."""
+    b = x.shape[0]
+    h, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    r = cfg.kv_lora_rank
+    smax = cache_c.shape[1]
+    q_nope, q_rope, c, kr = _mla_project(p, cfg, x, positions)
+    slot = positions[:, 0].clamp(max=smax - 1)
+    rows = torch.arange(b, device=x.device)
+    cache_c[rows, slot] = c[:, 0]                      # in place
+    cache_kr[rows, slot] = kr[:, 0]
+
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(),
+                         p.wuk.reshape(r, h, dn).float())     # (B,h,r)
+    logits = (torch.einsum("bhr,bsr->bhs", q_lat, cache_c.float())
+              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                             cache_kr.float())) * (dn + dr) ** -0.5
+    valid = torch.arange(smax, device=x.device)[None] <= positions[:, :1]
+    logits = logits.masked_fill(~valid[:, None], NEG_INF)
+    probs = torch.softmax(logits, -1)
+    ctx = torch.einsum("bhs,bsr->bhr", probs, cache_c.float())
+    out = torch.einsum("bhr,rhd->bhd", ctx, p.wuv.reshape(r, h, dv).float())
+    return out.reshape(b, 1, h * dv).to(x.dtype) @ p.wo

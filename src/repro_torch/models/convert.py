@@ -43,23 +43,35 @@ def _flatten(tree, prefix=""):
 def params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
     """A port ``Model`` state dict from the reference's param pytree.
 
-    The leading layer axis of ``tree["blocks"]`` is unstacked into
-    ``blocks.{i}.*``.  Weights are cast to ``cfg.dtype``; norm parameters
-    stay float32, as in both packages."""
+    The leading layer axis of ``tree["dense_blocks"]`` (DeepSeek's
+    leading dense layers, if any) and of ``tree["blocks"]`` is unstacked
+    into the port's one numbering: ``dense_blocks[i]`` is ``blocks.{i}``
+    and ``blocks[j]`` is ``blocks.{first_dense_layers + j}``.  Weights are
+    cast to ``cfg.dtype``; norm parameters and the MoE router stay
+    float32, as in both packages, and the (E, d, ff) expert weights are
+    carried whole."""
     dtype = DTYPES[cfg.dtype]
 
     def cast(name, a):
-        owner = name.split(".")[-2] if "." in name else ""
-        return _tensor(a, torch.float32 if "norm" in owner else dtype)
+        *owner, leaf = name.split(".")
+        f32 = bool(owner) and "norm" in owner[-1] or leaf == "router"
+        return _tensor(a, torch.float32 if f32 else dtype)
 
+    off = cfg.first_dense_layers if cfg.moe else 0
+    stacks = {"dense_blocks": (0, off),
+              "blocks": (off, cfg.num_layers - off)}
     out = {}
     for name, a in _flatten({k: v for k, v in tree.items()
-                             if k != "blocks"}):
+                             if k not in stacks}):
         out[name] = cast(name, a)
-    for name, a in _flatten(tree["blocks"]):
-        if a.shape[0] != cfg.num_layers:
-            raise ValueError(f"blocks.{name} has {a.shape[0]} layers, "
-                             f"config has {cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            out[f"blocks.{i}.{name}"] = cast(name, a[i])
+    for key, (start, n) in stacks.items():
+        if n and key not in tree:
+            raise ValueError(f"config has {n} layers in {key}, the tree "
+                             "has none")
+        for name, a in _flatten(tree.get(key, {})):
+            if a.shape[0] != n:
+                raise ValueError(f"{key}.{name} has {a.shape[0]} layers, "
+                                 f"config has {n}")
+            for i in range(n):
+                out[f"blocks.{start + i}.{name}"] = cast(name, a[i])
     return out

@@ -162,12 +162,19 @@ class ServeEngine:
     # ------------------------------------------------------------- pool --
     def _init_pool(self, page_size, hot_pages, cold_pages, pool_policy):
         cfg = self.cfg
+        if cfg.ssm or cfg.hybrid:
+            raise ValueError(
+                "kv_mode='dispersed' needs a paged KV layout; "
+                f"{cfg.name} ({cfg.family}) carries recurrent state — "
+                "serve it kv_mode='resident'")
         if self.max_len % page_size:
             raise ValueError(
                 f"page_size {page_size} must divide max_len {self.max_len}")
         self.page_size = page_size
         self._pages_per_seq = self.max_len // page_size
-        self._paged = ("k", "v")
+        # GQA caches page k and v, MLA caches its latent c and rope key kr
+        self._paged = tuple(k for k in ("k", "v", "c", "kr")
+                            if k in self.cache)
         self._unpaged = tuple(k for k in self.cache if k not in self._paged)
         self._page_block = {
             k: (self.cache[k].shape[0], page_size)

@@ -35,7 +35,10 @@ def test_port_and_chip_smoke_import_without_jax():
               "repro_torch.configs.paper_machine", "repro_torch.device",
               "repro_torch.cluster", "repro_torch.kernels.cluster_scan",
               "repro_torch.benchmarks.cluster_sweep",
-              "repro_torch.benchmarks.dse"):
+              "repro_torch.benchmarks.dse",
+              "repro_torch.benchmarks.kv_dispersion",
+              "repro_torch.benchmarks.serving_slo",
+              "repro_torch.configs.deepseek_v2_lite_16b"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

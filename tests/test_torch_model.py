@@ -67,24 +67,33 @@ def test_config_conversion_maps_attn_impl():
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_params_from_jax_round_trip(dtype):
-    jcfg, _, _, tree, cfg, model = _pair("phi3-mini-3.8b", dtype)
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "deepseek-v2-lite-16b"])
+def test_params_from_jax_round_trip(arch, dtype):
+    """deepseek-v2-lite has a leading dense layer (``dense_blocks``, the
+    port's ``blocks.0``) and an f32 MoE router."""
+    jcfg, _, _, tree, cfg, model = _pair(arch, dtype)
     sd = model.state_dict()
+    stacks = {"dense_blocks": 0, "blocks": cfg.first_dense_layers}
     flat = dict(convert._flatten({k: v for k, v in tree.items()
-                                  if k != "blocks"}))
+                                  if k not in stacks}))
     for name, a in flat.items():
         assert sd[name].dtype == (torch.float32 if "norm" in name
                                   else common.DTYPES[dtype])
         np.testing.assert_array_equal(sd[name].float().numpy(),
                                       np.asarray(a, np.float32))
-    for name, a in convert._flatten(tree["blocks"]):
-        for i in range(cfg.num_layers):
-            np.testing.assert_array_equal(
-                sd[f"blocks.{i}.{name}"].float().numpy(),
-                np.asarray(a[i], np.float32))
-    n_leaves = len(jax.tree.leaves(tree))
-    n_blocks = len(jax.tree.leaves(tree["blocks"]))
-    assert len(sd) == n_leaves - n_blocks + n_blocks * cfg.num_layers
+    n_stacked = 0
+    for key, off in stacks.items():
+        for name, a in convert._flatten(tree.get(key, {})):
+            f32 = "norm" in name or name.endswith("router")
+            for i in range(a.shape[0]):
+                got = sd[f"blocks.{off + i}.{name}"]
+                assert got.dtype == (torch.float32 if f32
+                                     else common.DTYPES[dtype])
+                np.testing.assert_array_equal(got.float().numpy(),
+                                              np.asarray(a[i], np.float32))
+                n_stacked += 1
+    assert ("dense_blocks" in tree) == bool(cfg.first_dense_layers)
+    assert len(sd) == len(flat) + n_stacked
 
 
 def test_params_from_jax_rejects_layer_mismatch():
@@ -202,7 +211,7 @@ def test_mlp_matches(kind):
 
 
 @pytest.mark.parametrize("arch,change", [
-    ("deepseek-v2-lite-16b", {}), ("falcon-mamba-7b", {}),
+    ("recurrentgemma-2b", {}), ("falcon-mamba-7b", {}),
     ("qwen2-vl-7b", {}), ("whisper-large-v3", {}),
     ("phi3-mini-3.8b", {"attn_bias": True}),
     ("phi3-mini-3.8b", {"sliding_window": 8})])
