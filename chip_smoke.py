@@ -109,6 +109,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
                serving_slo's axes and Pareto fronts equal to
                BENCH_core.json's, kv_dispersion's rows equal to its pool
                on the CPU;
+     families  P5b's last four families at their published widths and
+               full depth, each built and freed before the next:
+               qwen2-vl-7b (attention bias, M-RoPE, the vision stub over
+               a 16 x 16 grid of its first 256 tokens), falcon-mamba-7b
+               (Mamba, a torch loop over time), recurrentgemma-2b
+               (RG-LRU and local attention) prefill 4 x 512 and
+               whisper-large-v3 4 x 1,500 audio frames and 4 x 448
+               tokens: shapes, finite logits, first and second call
+               walls, peak memory, and the recurrences' device
+               operations and ms per layer; qwen2-vl's prefill through
+               K5 (D = 128, GQA 28/4), one launch per layer on the
+               tensor cores, held against sdpa end to end (top-1 >= 0.9,
+               max |dlogit| <= 0.5) and layer by layer; a reduced f32
+               copy of each on the card vs the CPU (prefill and 8
+               decode steps, the hybrid 12, past its window; qwen2-vl
+               and whisper through K5; the SSM's and the hybrid's decode
+               against their own prefill); each serves the seeded
+               steady scenario cut to 8 requests (SSM and hybrid
+               resident, qwen2-vl dispersed with k/v paged, whisper
+               dispersed with seeded encoder K/V unpaged), with one
+               decode step's wall and device time;
   6. roofline  the measured roofline (repro_torch.benchmarks.roofline) on
                the card: every row's schedule bytes agree with the closed
                form, the row count is the reference grid's, K3, K4 and
@@ -175,6 +196,8 @@ from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.ref import cast_like  # noqa: E402
 from repro_torch.models import Model, attention  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
+from repro_torch.models import rglru as trglru  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.serve import TRAFFIC_MIXES, ServeEngine, generate  # noqa: E402
 
 ARCH = "phi3-mini-3.8b"
@@ -307,6 +330,9 @@ def phase_kernels() -> float:
          torch.bfloat16, True, False),
         ("gqa_32_8_d128_bshd", (2, 32, 256, 128), (2, 8, 256, 128),
          torch.bfloat16, False, True),
+        # qwen2-vl's prefill: D = 128, GQA 28/4 (groups of 7)
+        ("vlm_28_4_d128_bshd", (4, 28, 512, 128), (4, 4, 512, 128),
+         torch.bfloat16, True, True),
         ("roofline_bf16", (1, 2, 256, 64), (1, 2, 256, 64), torch.bfloat16,
          False, False),
         ("bf16_d32_causal", (1, 4, 192, 32), (1, 4, 192, 32),
@@ -321,6 +347,9 @@ def phase_kernels() -> float:
          torch.bfloat16, True, False),
         ("ragged_sq_ne_sk", (1, 8, 200, 64), (1, 8, 328, 64), torch.float32,
          False, False),
+        # the reduced f32 whisper's encoder: 16 frames, D = 32, full
+        ("audio_f32_d32_full", (2, 4, 16, 32), (2, 4, 16, 32),
+         torch.float32, False, False),
         ("roofline_int8", (1, 2, 256, 64), (1, 2, 256, 64), torch.int8,
          False, False),
         ("int8_causal", (2, 8, 384, 96), (2, 8, 384, 96), torch.int8,
@@ -2043,7 +2072,7 @@ def check_layers_flash(model, batch) -> dict:
     through flash against sdpa on the same normed input (the sdpa run's),
     within the bf16 tolerance of the kernel checks (TOL)."""
     cfg = model.cfg
-    x, pos = model.embed[batch["tokens"]], batch["positions"]
+    x, pos = model._embed(batch), model._positions(batch)
     out = dict(ok=True, max_abs_err=0.0, max_abs_attn=0.0)
     with torch.no_grad():
         for blk in model.blocks:
@@ -2206,6 +2235,348 @@ def phase_moe() -> dict:
             out["phi"] = phase_moe_phi(model)
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- families --
+
+# P5b's last four families, in the order they landed: the VLM (through
+# K5), the SSM, the hybrid and the audio encoder-decoder
+FAMILIES = ("qwen2-vl-7b", "falcon-mamba-7b", "recurrentgemma-2b",
+            "whisper-large-v3")
+VISION_TOKENS = 256         # qwen2-vl: the first 256 tokens, a 16 x 16 grid
+VISION_GRID = 16
+WHISPER_DEC_LEN = 448       # whisper's published decoder context
+# Reduced f32 copy on the card vs the CPU, as phase_prefill's f32 check;
+# decoding token by token vs the full-sequence forward, as the CPU tests
+FAMILY_TOL = 1e-3
+CONSISTENCY_TOL = 2e-3
+# sequential decode steps of the reduced copies: the hybrid runs past its
+# window of 8, so its k/v ring wraps
+FAMILY_DECODE_STEPS = {"vlm": 8, "ssm": 8, "hybrid": 12, "audio": 8}
+FAMILY_IMPL = {"vlm": "flash", "ssm": "sdpa", "hybrid": "sdpa",
+               "audio": "flash"}
+FAMILY_KV_MODE = {"vlm": "dispersed", "ssm": "resident",
+                  "hybrid": "resident", "audio": "dispersed"}
+
+
+def family_batch(cfg, b, s, device, seed=0, n_vision=0):
+    """A prompt batch for any family, from a seed: tokens and positions;
+    for M-RoPE ``positions3``, the first ``n_vision`` tokens a patch grid
+    VISION_GRID wide (temporal 0, height its row, width its column) whose
+    embeddings the vision stub replaces (0.02 N(0, 1), the token
+    embeddings' scale), the text after counting on from the grid on all
+    three sections; for whisper its encoder_seq audio frames.  Tensors
+    land on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    pos = torch.arange(s).expand(b, s)
+    batch = {"tokens": toks, "positions": pos}
+    if cfg.positional == "mrope":
+        grid = torch.arange(n_vision)
+        # text counts on from the grid's larger side (rows or columns)
+        start = max(-(-n_vision // VISION_GRID), min(n_vision, VISION_GRID))
+        p3 = (pos - n_vision + start).expand(3, b, s).clone()
+        p3[0, :, :n_vision] = 0
+        p3[1, :, :n_vision] = grid // VISION_GRID
+        p3[2, :, :n_vision] = grid % VISION_GRID
+        batch["positions3"] = p3
+        if n_vision:
+            mask = torch.zeros((b, s), dtype=torch.bool)
+            mask[:, :n_vision] = True
+            batch["vision_mask"] = mask
+            batch["vision_embeds"] = 0.02 * torch.randn(
+                (b, s, cfg.d_model), generator=gen)
+    if cfg.encoder_decoder:
+        batch["audio_embeds"] = torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model), generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _step(batch, t):
+    """Token t of a prompt batch as a decode batch."""
+    out = {k: batch[k][:, t:t + 1] for k in ("tokens", "positions")}
+    if "positions3" in batch:
+        out["positions3"] = batch["positions3"][..., t:t + 1]
+    return out
+
+
+def _seeded_cross(cache, seed) -> None:
+    """Fill a whisper cache's encoder K/V from a seed, on the cache's
+    device (nothing in the reference or the port builds them)."""
+    gen = torch.Generator(device=cache["ek"].device).manual_seed(seed)
+    for k in ("ek", "ev"):
+        cache[k].copy_(torch.randn(cache[k].shape, generator=gen,
+                                   device=cache[k].device))
+
+
+def device_ops(prof) -> tuple[int, float | None]:
+    """The device-side operations (kernels, copies, sets) of a profiler
+    window and their summed device ms (None where none was recorded)."""
+    n, us = 0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            us += e.time_range.elapsed_us()
+    return n, (us / 1e3 if n else None)
+
+
+def recurrence_cost(model, batch) -> dict:
+    """One recurrent layer's prefill under torch.profiler: its device
+    operations (the time loop's launches) and device ms; times the
+    model's recurrent layers, the whole prefill's."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    blk = model.blocks[0]
+    x = model._norm(blk.norm1, model._embed(batch))
+    fn = (tssm.mamba if cfg.ssm else trglru.rglru)
+    fn(blk.mixer, cfg, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(blk.mixer, cfg, x)
+        torch.cuda.synchronize()
+    ops_, ms = device_ops(prof)
+    layers = sum(isinstance(b.mixer, (tssm.Mamba, trglru.RGLRU))
+                 for b in model.blocks)
+    return dict(recurrent_layers=layers, layer_device_ops=ops_,
+                layer_device_ms=ms, prefill_recurrence_ops=ops_ * layers)
+
+
+class CrossFilledEngine(ServeEngine):
+    """A ServeEngine whose slots start with seeded encoder K/V where the
+    model's cache has zeros: a stand-in for whisper's encoder output,
+    which neither package's engine builds.  One draw per admission."""
+
+    def __init__(self, *args, seed: int = 0, **kw):
+        super().__init__(*args, **kw)
+        self._cross_gen = torch.Generator(device=self.device).manual_seed(
+            seed)
+
+    def _reset_slot(self, s: int) -> None:
+        super()._reset_slot(s)
+        for k in ("ek", "ev"):
+            view = self.cache[k][:, s]
+            view.copy_(torch.randn(view.shape, generator=self._cross_gen,
+                                   device=self.device, dtype=view.dtype))
+
+
+def check_family_reduced(cfg, seed: int) -> dict:
+    """A reduced f32 copy of ``cfg`` on the card (through K5 where the
+    family's attention allows it) against the same weights on the CPU:
+    prefill logits, then FAMILY_DECODE_STEPS sequential decode steps
+    (logits, and the caches at the end) within FAMILY_TOL; the card's
+    decode logits against its own prefill within CONSISTENCY_TOL (not
+    for the SSM and the hybrid).  qwen2-vl prefills a vision grid and
+    decodes text, whose M-RoPE positions are the slot's; whisper decodes
+    against seeded encoder K/V."""
+    fam = cfg.family
+    impl = FAMILY_IMPL[fam]
+    small = dataclasses.replace(cfg.reduced(), dtype="float32",
+                                attn_impl=impl)
+    m_gpu = Model(small, device="cuda")
+    m_gpu.init(torch.Generator(device="cuda").manual_seed(seed))
+    m_cpu = Model(small, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in
+                           m_gpu.state_dict().items()})
+    steps = FAMILY_DECODE_STEPS[fam]
+    sb = family_batch(small, 2, 128, "cpu", seed=seed + 1, n_vision=32)
+    db = (family_batch(small, 2, steps, "cpu", seed=seed + 2)
+          if small.positional == "mrope" else sb)
+    fa.flash_attention_cuda.launches = 0
+    got = m_gpu.prefill({k: v.cuda() for k, v in sb.items()}).cpu()
+    flash = fa.flash_attention_cuda.launches
+    want = m_cpu.prefill(sb)
+    prefill_err = float((got - want).abs().max())
+
+    b, smax = 2, 2 * steps
+    c_gpu, c_cpu = m_gpu.init_cache(b, smax), m_cpu.init_cache(b, smax)
+    if small.encoder_decoder:
+        _seeded_cross(c_cpu, seed + 3)
+        for k in ("ek", "ev"):
+            c_gpu[k].copy_(c_cpu[k])
+    recurrent = small.ssm or small.hybrid
+    decode_err = consistency = 0.0
+    for t in range(steps):
+        step = _step(db, t)
+        lg, c_gpu = m_gpu.decode_step(
+            c_gpu, {k: v.cuda() for k, v in step.items()})
+        lc, c_cpu = m_cpu.decode_step(c_cpu, step)
+        decode_err = max(decode_err, float((lg.cpu() - lc).abs().max()))
+        consistency = max(consistency,
+                          float((lg[:, 0].cpu() - got[:, t]).abs().max()))
+    cache_err = max(float((c_gpu[k].cpu() - c_cpu[k]).abs().max())
+                    for k in c_cpu)
+    out = dict(arch=cfg.name, impl=impl, flash_launches=flash,
+               prefill_err=prefill_err, decode_err=decode_err,
+               decode_steps=steps, cache_keys="/".join(c_cpu),
+               cache_err=cache_err, tol=FAMILY_TOL)
+    if recurrent:
+        out.update(decode_vs_prefill=consistency,
+                   consistency_tol=CONSISTENCY_TOL)
+    log("families", check="reduced_f32_card_vs_cpu", **out)
+    check(max(prefill_err, decode_err, cache_err) <= FAMILY_TOL,
+          f"reduced {cfg.name} on the card off by {out}")
+    check(not recurrent or consistency <= CONSISTENCY_TOL,
+          f"reduced {cfg.name}: decode vs prefill off by {consistency}")
+    check((flash > 0) == (impl == "flash"),
+          f"reduced {cfg.name}: {flash} K5 launches through {impl}")
+    return out
+
+
+def family_prefill(model) -> dict:
+    """Full-width prefill: the first call's wall and a second's, the
+    logits' shape, finiteness, and the peak memory; the recurrences'
+    cost for the SSM and the hybrid."""
+    cfg = model.cfg
+    s = WHISPER_DEC_LEN if cfg.encoder_decoder else PREFILL_LEN
+    batch = family_batch(cfg, PREFILL_BATCH, s, "cuda",
+                         n_vision=VISION_TOKENS)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits = model.prefill(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out = dict(arch=cfg.name, tokens=f"{PREFILL_BATCH}x{s}",
+               first_call_s=round(walls[0], 3),
+               second_call_s=round(walls[1], 3),
+               peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    if cfg.encoder_decoder:
+        out["audio_frames"] = f"{PREFILL_BATCH}x{cfg.encoder_seq}"
+    if cfg.ssm or cfg.hybrid:
+        out.update(recurrence_cost(model, batch))
+    check(logits.shape == (PREFILL_BATCH, s, cfg.vocab_size),
+          f"{cfg.name} prefill logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()),
+          f"non-finite {cfg.name} prefill logits")
+    return out
+
+
+def family_vlm_flash(model) -> dict:
+    """qwen2-vl's prefill (vision stub, M-RoPE over the grid) through K5
+    against the sdpa path: one launch per layer, all on the tensor
+    cores, phase_prefill's bounds end to end, and K5 against sdpa layer
+    by layer on the prefill's own inputs."""
+    cfg = model.cfg
+    batch = family_batch(cfg, PREFILL_BATCH, PREFILL_LEN, "cuda",
+                         n_vision=VISION_TOKENS)
+    sdpa = _prefill(model, "sdpa", batch)
+    fa.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    flash = _prefill(model, "flash", batch)
+    t_flash = time.perf_counter() - t0
+    launches = fa.flash_attention_cuda.launches
+    launches_tc = fa.flash_attention_cuda.launches_tc
+    dlogit = float((flash.float() - sdpa.float()).abs().max())
+    top1 = float((flash.argmax(-1) == sdpa.argmax(-1)).float().mean())
+    layers = check_layers_flash(model, batch)
+    model.cfg = cfg
+    out = dict(flash_launches=launches, flash_launches_tc=launches_tc,
+               max_abs_dlogit_vs_sdpa=dlogit, top1_agreement_vs_sdpa=top1,
+               layer_max_abs_err=layers["max_abs_err"],
+               layer_max_abs_attn=layers["max_abs_attn"],
+               second_call_s_flash=round(t_flash, 3))
+    log("families", arch=cfg.name, check="flash_vs_sdpa", **out)
+    check(launches == launches_tc == cfg.num_layers,
+          f"{launches} flash launches ({launches_tc} on the tensor cores), "
+          f"want one per layer ({cfg.num_layers}), all on the tensor cores")
+    check(layers["ok"], f"qwen2-vl: K5 vs sdpa layer by layer {layers}")
+    check(top1 >= 0.9 and dlogit <= 0.5,
+          f"qwen2-vl flash vs sdpa prefill: top-1 {top1}, max |dlogit| "
+          f"{dlogit}")
+    return out
+
+
+def family_serve(model) -> dict:
+    """The seeded steady scenario cut to 8 requests: the SSM and the
+    hybrid resident, qwen2-vl dispersed (k/v paged), whisper dispersed
+    with its encoder K/V unpaged and seeded; then one decode step's wall
+    at the engine's batch (CUDA events over back-to-back steps) and its
+    device time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    kv_mode = FAMILY_KV_MODE[cfg.family]
+    scen = generate(dataclasses.replace(
+        TRAFFIC_MIXES["steady"], n_requests=8, vocab=cfg.vocab_size,
+        max_len=48), seed=0)
+    kw = dict(slots=4, max_len=64, kv_mode=kv_mode, device="cuda")
+    if kv_mode == "dispersed":
+        kw["page_size"] = 16
+    engine = (CrossFilledEngine(cfg, model, **kw) if cfg.encoder_decoder
+              else ServeEngine(cfg, model, **kw))
+    t0 = time.perf_counter()
+    reqs = engine.serve(scen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in reqs)
+    out = dict(arch=cfg.name, kv_mode=kv_mode, requests=len(reqs),
+               done=sum(r.status == "done" for r in reqs),
+               steps=len(engine.step_log), tokens_out=tokens,
+               wall_s=round(wall, 3), tokens_per_s=round(tokens / wall, 2),
+               engine_step_ms=wall * 1e3 / max(len(engine.step_log), 1))
+    if kv_mode == "dispersed":
+        st = engine.kv_stats()
+        out.update(paged="/".join(engine._paged),
+                   unpaged="/".join(engine._unpaged), hits=st["hits"],
+                   misses=st["misses"], fills=st["fills"],
+                   spills=st["spills"], hot_pages=st["hot_pages"])
+    cache = model.init_cache(4, 64)
+    if cfg.encoder_decoder:
+        _seeded_cross(cache, 1)
+    step = {"tokens": torch.ones((4, 1), dtype=torch.long, device="cuda"),
+            "positions": torch.full((4, 1), 8, dtype=torch.long,
+                                    device="cuda")}
+    if cfg.positional == "mrope":
+        step["positions3"] = step["positions"].expand(3, 4, 1)
+    out["decode_step_ms"] = cuda_ms(lambda: model.decode_step(cache, step),
+                                    warmup=2, iters=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_step(cache, step)
+        torch.cuda.synchronize()
+    out["decode_step_device_ops"], out["decode_step_device_ms"] = \
+        device_ops(prof)
+    del cache
+    log("families", check="serve", **out)
+    check(all(r.status == "done" for r in reqs),
+          f"{cfg.name} statuses {[r.status for r in reqs]}")
+    if kv_mode == "dispersed":
+        want = ("k", "v")
+        check(engine._paged == want, f"dispersed {cfg.name} pages "
+              f"{engine._paged}, want {want}")
+    return out
+
+
+def phase_families() -> dict:
+    """[families]: qwen2-vl, falcon-mamba, recurrentgemma and whisper at
+    their published widths and full depth, each built, seeded and freed
+    before the next: prefill, qwen2-vl through K5, a reduced f32 copy on
+    the card vs the CPU, and serving.  Returns the figures by family."""
+    out = {}
+    for arch in FAMILIES:
+        cfg = get(arch)
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda")
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        fam = dict(arch=cfg.name, family=cfg.family, layers=cfg.num_layers,
+                   d=cfg.d_model,
+                   params=sum(p.numel() for p in model.parameters()),
+                   params_counted=cfg.param_count(),
+                   weight_gb=round(weight_gb(model), 3),
+                   build_s=round(time.perf_counter() - t0, 3))
+        if cfg.encoder_decoder:
+            fam["encoder_layers"] = cfg.num_encoder_layers
+        log("model", **fam)
+        fam["prefill"] = family_prefill(model)
+        log("families", check="prefill", **fam["prefill"])
+        if cfg.family == "vlm":
+            fam["flash"] = family_vlm_flash(model)
+        fam["serve"] = family_serve(model)
+        del model
+        torch.cuda.empty_cache()
+        fam["reduced"] = check_family_reduced(cfg, seed=8)
+        out[cfg.family] = fam
     return out
 
 
@@ -2808,6 +3179,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = phase_moe()
     moe_launches = moe["phi"]["flash_launches"]
+    families = phase_families()
+    vlm_launches = families["vlm"]["flash"]["flash_launches"]
     phase_serving()
     paths = phase_roofline()
     flash_timing = phase_timing()
@@ -2823,7 +3196,7 @@ def main() -> int:
     flash_routes = {route: sum(r[route] for r in route_launches[
         "flash_attention"].values()) for route in ("tc", "fma")}
     # all on the tensor cores
-    flash_routes["tc"] += prefill_launches + moe_launches
+    flash_routes["tc"] += prefill_launches + moe_launches + vlm_launches
 
     def gemm_entry(name, replaces):
         g = dict(gemm[name])
@@ -2850,7 +3223,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:118",
              **launches("flash_attention", {"prefill": prefill_launches,
-                                            "prefill_moe": moe_launches}),
+                                            "prefill_moe": moe_launches,
+                                            "prefill_vlm": vlm_launches}),
              launches_by_route=flash_routes,
              roofline_launches_by_precision_and_route=route_launches[
                  "flash_attention"],

@@ -2,6 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
       --reduced --requests 8 --max-new 12 [--device cpu]
+
+``--arch`` takes any of the ten configs; the recurrent ones (SSM,
+hybrid) serve with their state resident, whisper with the encoder K/V
+its cache starts with (zeros, as in the reference).
 """
 
 from __future__ import annotations

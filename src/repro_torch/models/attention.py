@@ -1,11 +1,19 @@
-"""Attention blocks: GQA/MHA with RoPE and optional qk-norm, and
-DeepSeek-V2 Multi-head Latent Attention (MLA).
+"""Attention blocks: GQA/MHA (RoPE, M-RoPE, qk-norm, attention bias,
+sliding window, cross-attention) and DeepSeek-V2 Multi-head Latent
+Attention (MLA).
 
-Two entry modes share weights:
+Three entry modes share weights:
   * ``attention``: full-sequence attention (train / prefill), through the
     plain-torch ``_sdpa`` (``impl='sdpa'``) or the FlashAttention kernel
-    (``impl='flash'``, ``kernels.ops.flash_attention``);
-  * ``decode_attention``: one token against a (B, S_max, Hkv, D) KV cache.
+    (``impl='flash'``, ``kernels.ops.flash_attention``); with
+    ``kv_input`` it is cross-attention onto an encoder's output;
+  * ``decode_attention``: one token against a (B, S_max, Hkv, D) KV cache,
+    a ring buffer when the cache is no longer than the sliding window;
+  * ``decode_cross_attention``: one token against an encoder's K/V.
+
+The kernel takes no mask but the causal one, so like the reference the
+``flash`` branch refuses a sliding window and cross-attention; bias and
+M-RoPE are applied to q/k/v before the call.
 
 MLA (``mla_attention``, ``mla_decode``) caches the compressed latent
 ``c`` (B, S, r) and the shared RoPE key ``kr`` (B, S, dr).  Like the
@@ -14,9 +22,7 @@ not its value head dim, and the FlashAttention kernel takes one head dim
 for q, k and v.
 
 On one card the reference's tensor-parallel KV head expansion is a no-op,
-so it has no counterpart here.  Attention bias, sliding windows, M-RoPE
-and cross-attention belong to families not ported yet; ``Model`` rejects
-their configs.
+so it has no counterpart here.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ NEG_INF = -1e30
 
 
 class Attention(nn.Module):
-    """Projection weights, (d_in, d_out) and applied as ``x @ w``."""
+    """Projection weights, (d_in, d_out) and applied as ``x @ w``; with
+    ``cfg.attn_bias`` the biases ``bq``, ``bk``, ``bv`` (zero at init, as
+    in the reference)."""
 
     def __init__(self, cfg, dtype, device="cuda"):
         super().__init__()
@@ -46,6 +54,8 @@ class Attention(nn.Module):
         self.wq, self.wk, self.wv = w(d, nq * hd), w(d, nkv * hd), \
             w(d, nkv * hd)
         self.wo = w(nq * hd, d)
+        if cfg.attn_bias:
+            self.bq, self.bk, self.bv = w(nq * hd), w(nkv * hd), w(nkv * hd)
         if cfg.qk_norm:
             self.q_norm = common.Norm(hd, "rms", dev)
             self.k_norm = common.Norm(hd, "rms", dev)
@@ -55,49 +65,75 @@ class Attention(nn.Module):
             common.dense_init_(w, gen)
 
 
-def _project_qkv(p, cfg, x, positions):
-    """Returns q: (B,S,Hq,D), k/v: (B,S,Hkv,D) (rope applied)."""
+def _project_qkv(p, cfg, x, positions, kv_input=None):
+    """Returns q: (B,S,Hq,D), k/v: (B,Skv,Hkv,D), keys and values taken
+    from ``kv_input`` (B,Skv,d) if given, else from ``x``.  RoPE
+    (positions (B,S)) or M-RoPE (positions (3,B,S)) turns q and k unless
+    the keys are an encoder's; ``none`` and ``sinusoidal`` turn nothing."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    kv_src = x if kv_input is None else kv_input
+    skv = kv_src.shape[1]
+    q, k, v = x @ p.wq, kv_src @ p.wk, kv_src @ p.wv
+    if cfg.attn_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(b, s, cfg.num_heads, hd)
-    k = k.reshape(b, s, cfg.num_kv_heads, hd)
-    v = v.reshape(b, s, cfg.num_kv_heads, hd)
+    k = k.reshape(b, skv, cfg.num_kv_heads, hd)
+    v = v.reshape(b, skv, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = common.rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = common.rmsnorm(p.k_norm, k, cfg.norm_eps)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    if kv_input is None and cfg.positional == "rope":
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    elif kv_input is None and cfg.positional == "mrope":
+        q = common.apply_mrope(q, positions, cfg.rope_theta)
+        k = common.apply_mrope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _sdpa(q, k, v, *, causal):
+def _sdpa(q, k, v, *, causal, window=None):
     """Plain attention. q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D); the causal
-    rule is top-left (query row i sees keys j <= i)."""
+    rule is top-left (query row i sees keys j <= i), and a ``window``
+    keeps keys j > i - window."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
     qg = q.reshape(b, sq, hkv, groups, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) * (d ** -0.5)
-    if causal:
+    if causal or window is not None:
         qpos = torch.arange(sq, device=q.device)[:, None]
         kpos = torch.arange(sk, device=q.device)[None, :]
-        logits = logits.masked_fill(qpos < kpos, NEG_INF)
+        masked = torch.zeros((sq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            masked |= qpos < kpos
+        if window is not None:
+            masked |= qpos - kpos >= window
+        logits = logits.masked_fill(masked, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
-def attention(p, cfg, x, positions, *, causal=True, impl="sdpa"):
-    """Full-sequence attention (train / prefill). x: (B,S,d)."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
+def attention(p, cfg, x, positions, *, causal=True, kv_input=None,
+              impl="sdpa"):
+    """Full-sequence attention (train / prefill). x: (B,S,d); with
+    ``kv_input`` (B,Skv,d), non-causal cross-attention onto it."""
+    q, k, v = _project_qkv(p, cfg, x, positions, kv_input)
+    window = cfg.sliding_window
     if impl == "flash":
+        if window is not None or kv_input is not None:
+            raise ValueError(
+                "the flash kernel takes no sliding window and no "
+                "cross-attention (the reference asserts the same); use "
+                "impl='sdpa'")
         out = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal).transpose(1, 2)
     elif impl == "sdpa":
-        out = _sdpa(q, k, v, causal=causal)
+        out = _sdpa(q, k, v, causal=causal and kv_input is None,
+                    window=window)
     else:
         raise ValueError(f"attn impl must be 'sdpa' or 'flash', got {impl!r}")
     b, s = x.shape[:2]
@@ -105,15 +141,23 @@ def attention(p, cfg, x, positions, *, causal=True, impl="sdpa"):
 
 
 def decode_attention(p, cfg, x, positions, cache_k, cache_v):
-    """One-token decode. x: (B,1,d); cache_k/v: (B,S_max,Hkv,D).
+    """One-token decode. x: (B,1,d); cache_k/v: (B,S_max,Hkv,D);
+    positions (B,1), or for M-RoPE (3,B,1), whose temporal row picks the
+    slot and the causal limit.
 
-    Writes this token's k/v into ``cache_k``/``cache_v`` in place (the
-    reference's one-hot blend builds new arrays; the values are the same)
-    and returns the attention output (B,1,d)."""
+    A cache no longer than the sliding window is a ring buffer (slot
+    pos % S_max; once it has wrapped, every slot is valid); a longer one
+    keeps the window in its mask.  Writes this token's k/v into
+    ``cache_k``/``cache_v`` in place (the reference's one-hot blend
+    builds new arrays; the values are the same) and returns the
+    attention output (B,1,d)."""
     q, k, v = _project_qkv(p, cfg, x, positions)
+    tpos = positions[0] if positions.ndim == 3 else positions
     b, _, hkv, d = k.shape
     smax = cache_k.shape[1]
-    slot = positions[:, 0].clamp(max=smax - 1)
+    window = cfg.sliding_window
+    ring = window is not None and smax <= window
+    slot = tpos[:, 0] % smax if ring else tpos[:, 0].clamp(max=smax - 1)
     rows = torch.arange(b, device=x.device)
     cache_k[rows, slot] = k[:, 0]                      # in place
     cache_v[rows, slot] = v[:, 0]
@@ -123,13 +167,28 @@ def decode_attention(p, cfg, x, positions, cache_k, cache_v):
     logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
                           cache_k.float()) * (d ** -0.5)
     kpos = torch.arange(smax, device=x.device)[None, :]
-    valid = kpos <= positions[:, :1]                   # causal up to current
+    valid = kpos <= tpos[:, :1]                        # causal up to current
+    if ring:
+        valid = valid | (tpos[:, :1] >= smax)
+    elif window is not None:
+        valid = valid & (tpos[:, :1] - kpos < window)
     logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", probs, cache_v.float())
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return out @ p.wo
 
+
+def decode_cross_attention(p, cfg, x, enc_k, enc_v):
+    """One token of enc-dec decode against the encoder's K/V (B,S_enc,
+    Hkv,D), computed before the decode; returns (B,1,d)."""
+    b = x.shape[0]
+    q = x @ p.wq
+    if cfg.attn_bias:
+        q = q + p.bq
+    q = q.reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    out = _sdpa(q, enc_k, enc_v, causal=False)
+    return out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p.wo
 
 # ---------------------------------------------------------------------------
 # DeepSeek-V2 Multi-head Latent Attention (MLA).

@@ -1,4 +1,5 @@
-"""Shared model components: norms, initializers and RoPE.
+"""Shared model components: norms, initializers, RoPE and M-RoPE, and
+sinusoidal positions.
 
 The reference's sharding helpers (``shard``, the mesh context and the
 decode layout) have no counterpart here: the port runs on one card.
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -99,3 +101,51 @@ def apply_rope(x, positions, theta: float = 1e4):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+MROPE_FRACS = (0.25, 0.375, 0.375)        # temporal / height / width sections
+
+
+def apply_mrope(x, positions3, theta: float = 1e4):
+    """Qwen2-VL multimodal RoPE. x: (B,S,H,D); positions3: (3,B,S).  The
+    rotation's D/2 frequencies are split into temporal, height and width
+    sections, each turned by its own row of ``positions3``."""
+    d = x.shape[-1]
+    half = d // 2
+    sec = [int(half * f) for f in MROPE_FRACS]
+    sec[-1] = half - sec[0] - sec[1]
+    freqs = rope_freqs(d, theta, x.device)                 # (half,)
+    parts, start = [], 0
+    for i, n in enumerate(sec):
+        parts.append(positions3[i][..., None].float()
+                     * freqs[start:start + n])             # (B,S,n)
+        start += n
+    ang = torch.cat(parts, -1)[:, :, None, :]              # (B,S,1,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (Whisper).
+# ---------------------------------------------------------------------------
+
+
+def sinusoidal_positions(seq: int, d: int) -> torch.Tensor:
+    """The (seq, d) table of positions 0..seq-1, computed in float64 and
+    returned as float32."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], -1)
+    return torch.from_numpy(out).float()
+
+
+def sinusoid_at(positions, d: int):
+    """Sinusoidal embeddings for integer positions (B,S) -> (B,S,d) f32,
+    computed in float32 as the model's embedding adds them."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    inv = torch.pow(10000.0, -2.0 * i / d)
+    ang = positions[..., None].float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)

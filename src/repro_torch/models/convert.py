@@ -2,8 +2,9 @@
 
 Nothing here imports the reference: a config is read through its
 dataclass fields and parameters arrive as a nested dict of numpy arrays
-(float32, or ``ml_dtypes`` bfloat16).  bf16 -> f32 -> bf16 is exact, so a
-converted port model computes with bit-identical weights.
+(float32, or ``ml_dtypes`` bfloat16), each converted to a tensor of its
+own dtype.  bf16 -> f32 -> bf16 is exact, so a converted port model
+computes with bit-identical weights.
 """
 
 from __future__ import annotations
@@ -28,43 +29,60 @@ def config_from_jax(cfg) -> ArchConfig:
     return ArchConfig(**fields)
 
 
-def _tensor(a, dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+def _tensor(a) -> torch.Tensor:
+    """The leaf as a tensor of its own dtype (float32, or bfloat16 from
+    ``ml_dtypes``)."""
+    name = np.asarray(a).dtype.name
+    if name not in DTYPES:
+        raise ValueError(f"leaf dtype {name} is neither float32 nor "
+                         "bfloat16")
+    return torch.from_numpy(np.array(a, np.float32)).to(DTYPES[name])
 
 
 def _flatten(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             yield from _flatten(v, f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", v
 
 
+def _stacks(cfg) -> dict[str, tuple[str, int, int]]:
+    """The reference's stacked subtrees: key -> (the port's module list,
+    its first layer there, the number of layers)."""
+    if cfg.encoder_decoder:
+        return {"encoder": ("encoder", 0, cfg.num_encoder_layers),
+                "decoder": ("decoder", 0, cfg.num_layers)}
+    if cfg.hybrid:
+        return {}                 # a Python list of per-layer dicts
+    off = cfg.first_dense_layers if cfg.moe else 0
+    return {"dense_blocks": ("blocks", 0, off),
+            "blocks": ("blocks", off, cfg.num_layers - off)}
+
+
 def params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
     """A port ``Model`` state dict from the reference's param pytree.
 
-    The leading layer axis of ``tree["dense_blocks"]`` (DeepSeek's
-    leading dense layers, if any) and of ``tree["blocks"]`` is unstacked
-    into the port's one numbering: ``dense_blocks[i]`` is ``blocks.{i}``
-    and ``blocks[j]`` is ``blocks.{first_dense_layers + j}``.  Weights are
-    cast to ``cfg.dtype``; norm parameters and the MoE router stay
-    float32, as in both packages, and the (E, d, ff) expert weights are
-    carried whole."""
-    dtype = DTYPES[cfg.dtype]
-
-    def cast(name, a):
-        *owner, leaf = name.split(".")
-        f32 = bool(owner) and "norm" in owner[-1] or leaf == "router"
-        return _tensor(a, torch.float32 if f32 else dtype)
-
-    off = cfg.first_dense_layers if cfg.moe else 0
-    stacks = {"dense_blocks": (0, off),
-              "blocks": (off, cfg.num_layers - off)}
+    The leading layer axis of each stacked subtree is unstacked into the
+    port's module lists: ``dense_blocks[i]`` (DeepSeek's leading dense
+    layers, if any) is ``blocks.{i}`` and ``blocks[j]`` is
+    ``blocks.{first_dense_layers + j}``; whisper's ``encoder[i]`` and
+    ``decoder[i]`` are ``encoder.{i}`` and ``decoder.{i}``.  The hybrid's
+    ``blocks`` is already a list, ``blocks[i]`` is ``blocks.{i}``.  Each
+    leaf keeps the dtype the reference gave it: the config's, or float32
+    for the norms, the MoE router and the recurrences' constants
+    (``a_log``, ``dt_bias``, ``d_skip``, ``ba``, ``bx``, ``lam``).  The
+    (E, d, ff) expert weights are carried whole."""
+    stacks = _stacks(cfg)
+    if cfg.hybrid and len(tree["blocks"]) != cfg.num_layers:
+        raise ValueError(f"the tree has {len(tree['blocks'])} layers, "
+                         f"config has {cfg.num_layers}")
     out = {}
     for name, a in _flatten({k: v for k, v in tree.items()
                              if k not in stacks}):
-        out[name] = cast(name, a)
-    for key, (start, n) in stacks.items():
+        out[name] = _tensor(a)
+    for key, (dest, start, n) in stacks.items():
         if n and key not in tree:
             raise ValueError(f"config has {n} layers in {key}, the tree "
                              "has none")
@@ -73,5 +91,5 @@ def params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
                 raise ValueError(f"{key}.{name} has {a.shape[0]} layers, "
                                  f"config has {n}")
             for i in range(n):
-                out[f"blocks.{start + i}.{name}"] = cast(name, a[i])
+                out[f"{dest}.{start + i}.{name}"] = _tensor(a[i])
     return out

@@ -1,28 +1,44 @@
-"""Model assembly: the dense family ([norm -> GQA -> norm -> MLP] blocks)
-and the MoE family ([norm -> GQA/MLA -> norm -> MoE] blocks, after
-DeepSeek's leading dense layers).
+"""Model assembly for the ten assigned architectures.
 
-The reference stacks each layer's weights along a leading axis and runs
-``lax.scan``; here :class:`Model` is an ``nn.Module`` holding one
-:class:`Block` per layer and loops over them in Python.  Layer i <
+One :class:`Model` per ``ArchConfig``; the families share layer code:
+
+  dense / vlm          : [norm -> GQA -> norm -> MLP] blocks
+  moe                  : [norm -> GQA/MLA -> norm -> MoE] blocks, after
+                         DeepSeek's leading dense layers
+  ssm (falcon-mamba)   : [norm -> Mamba] blocks
+  hybrid (r.gemma)     : the (RG-LRU, RG-LRU, local attention) pattern:
+                         layer i is attention iff i % 3 == 2, every layer
+                         has a norm and an MLP after its mixer
+  audio (whisper)      : an encoder stack, then a decoder stack with
+                         cross-attention onto the encoder's output
+
+The reference stacks each homogeneous stack's weights along a leading
+axis and runs ``lax.scan``; here :class:`Model` is an ``nn.Module``
+holding one block per layer and loops over them in Python.  Layer i <
 ``first_dense_layers`` is the reference's ``dense_blocks[i]`` (a SwiGLU
 FFN of width ``d_ff``), layer i above it its ``blocks[i -
-first_dense_layers]``.
+first_dense_layers]``; whisper's stacks are ``encoder`` and ``decoder``.
 
 Entry points:
   init(generator)             -> fills the weights from a seeded generator
   train_logits(batch)         -> (logits, aux_loss): the summed MoE
                                  load-balancing loss, 0.0 without MoE
   prefill(batch)              -> logits
-  init_cache(batch, max_len)  -> {"k", "v"}: (L, B, S_max, Hkv, D) zeros,
-                                 or for MLA {"c": (L, B, S_max, r),
-                                 "kr": (L, B, S_max, dr)}
+  init_cache(batch, max_len)  -> the family's decode state, zeros:
+                                 {"k", "v"} (L, B, S_max, Hkv, D); MLA
+                                 {"c", "kr"}; SSM {"conv", "h"}; hybrid
+                                 {"conv", "h", "k", "v"} with the k/v ring
+                                 no longer than the window; audio
+                                 {"k", "v", "ek", "ev"}
   decode_step(cache, batch)   -> (logits (B,1,V), cache), cache updated in
                                  place
 
-Other families (SSM, hybrid, encoder-decoder, VLM), and configs with
-features only those use (attention bias, sliding window, positions other
-than RoPE), raise ``NotImplementedError``.
+A batch holds ``tokens`` and ``positions`` (B,S); qwen2-vl's M-RoPE reads
+``positions3`` (3,B,S) and its vision stub ``vision_embeds`` (B,S,d)
+where ``vision_mask`` (B,S) is set; whisper's encoder reads
+``audio_embeds`` (B,S_enc,d).  Whisper's decode reads the encoder's K/V
+from the cache's ``ek``/``ev``: as in the reference, nothing here builds
+them.
 """
 
 from __future__ import annotations
@@ -30,18 +46,28 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, rglru, ssm
 
 
 class Block(nn.Module):
-    """[norm -> attention (GQA or MLA) -> norm -> FFN]; the FFN is the
-    MoE, or with ``dense`` an MLP of width ``d_ff``."""
+    """[norm1 -> mixer -> norm2 -> FFN].  The mixer is attention (GQA or
+    MLA), or with ``recurrent`` the RG-LRU; the FFN is the MoE or, with
+    ``dense``, an MLP of width ``d_ff``.  ``cross`` adds a decoder's
+    cross-attention (``norm_x`` -> ``cross``) after the mixer."""
 
-    def __init__(self, cfg, dtype, device, dense: bool):
+    def __init__(self, cfg, dtype, device, dense: bool,
+                 recurrent: bool = False, cross: bool = False):
         super().__init__()
         self.norm1 = common.Norm(cfg.d_model, cfg.norm_kind, device)
-        self.mixer = (attention.MLA(cfg, dtype, device) if cfg.mla
-                      else attention.Attention(cfg, dtype, device))
+        if recurrent:
+            self.mixer = rglru.RGLRU(cfg, dtype, device)
+        elif cfg.mla:
+            self.mixer = attention.MLA(cfg, dtype, device)
+        else:
+            self.mixer = attention.Attention(cfg, dtype, device)
+        if cross:
+            self.norm_x = common.Norm(cfg.d_model, cfg.norm_kind, device)
+            self.cross = attention.Attention(cfg, dtype, device)
         self.norm2 = common.Norm(cfg.d_model, cfg.norm_kind, device)
         if dense:
             # DeepSeek's leading dense layers are SwiGLU whatever mlp_kind
@@ -50,48 +76,104 @@ class Block(nn.Module):
         else:
             self.ffn = mlp.MoE(cfg, dtype, device)
 
+    def init_(self, gen: torch.Generator) -> None:
+        self.mixer.init_(gen)
+        if hasattr(self, "cross"):
+            self.cross.init_(gen)
+        self.ffn.init_(gen)
+
+
+class MambaBlock(nn.Module):
+    """[norm1 -> Mamba]: the Mamba mixer has its own gated output, and
+    the block no FFN."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.norm1 = common.Norm(cfg.d_model, cfg.norm_kind, device)
+        self.mixer = ssm.Mamba(cfg, dtype, device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.mixer.init_(gen)
+
+
+def is_attention_layer(i: int) -> bool:
+    """Whether layer i of a hybrid is a local-attention block."""
+    return i % 3 == 2
+
 
 class Model(nn.Module):
     def __init__(self, cfg, device="cuda"):
         super().__init__()
-        if (cfg.family not in ("dense", "moe") or cfg.ssm or cfg.hybrid
-                or cfg.encoder_decoder or cfg.attn_bias
-                or cfg.sliding_window is not None
-                or cfg.positional != "rope"):
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) is not ported yet; the port has "
-                "the dense and MoE families (ROADMAP: remaining model "
-                "families)")
         dev = common.resolve_device(device)
         self.cfg = cfg
         self.device = dev
         self.dtype = common.DTYPES[cfg.dtype]
+        dt = self.dtype
         self.embed = nn.Parameter(
-            torch.zeros(cfg.vocab_size, cfg.d_model, dtype=self.dtype,
-                        device=dev), requires_grad=False)
+            torch.zeros(cfg.vocab_size, cfg.d_model, dtype=dt, device=dev),
+            requires_grad=False)
         self.final_norm = common.Norm(cfg.d_model, cfg.norm_kind, dev)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
-                torch.zeros(cfg.d_model, cfg.vocab_size, dtype=self.dtype,
+                torch.zeros(cfg.d_model, cfg.vocab_size, dtype=dt,
                             device=dev), requires_grad=False)
-        dense = cfg.first_dense_layers if cfg.moe else cfg.num_layers
-        self.blocks = nn.ModuleList(
-            Block(cfg, self.dtype, dev, dense=i < dense)
-            for i in range(cfg.num_layers))
+        layers = range(cfg.num_layers)
+        if cfg.encoder_decoder:
+            self.encoder = nn.ModuleList(
+                Block(cfg, dt, dev, dense=True)
+                for _ in range(cfg.num_encoder_layers))
+            self.enc_norm = common.Norm(cfg.d_model, cfg.norm_kind, dev)
+            self.decoder = nn.ModuleList(
+                Block(cfg, dt, dev, dense=True, cross=True) for _ in layers)
+        elif cfg.ssm:
+            self.blocks = nn.ModuleList(MambaBlock(cfg, dt, dev)
+                                        for _ in layers)
+        elif cfg.hybrid:
+            self.blocks = nn.ModuleList(
+                Block(cfg, dt, dev, dense=True,
+                      recurrent=not is_attention_layer(i))
+                for i in layers)
+        else:
+            dense = cfg.first_dense_layers if cfg.moe else cfg.num_layers
+            self.blocks = nn.ModuleList(
+                Block(cfg, dt, dev, dense=i < dense) for i in layers)
 
     # ------------------------------------------------------------- init --
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> "Model":
         """Random weights with the reference's distributions, drawn from
         ``gen`` (which must live on the model's device).  Norm scales
-        stay 1 and biases (LayerNorm, GELU MLP) 0."""
+        stay 1, biases (attention, LayerNorm, GELU MLP, conv) 0 and the
+        recurrences' constants (``a_log``, ``d_skip``, ``dt_bias``,
+        ``ba``, ``bx``, ``lam``) at the reference's values."""
         common.embed_init_(self.embed, gen)
         if not self.cfg.tie_embeddings:
             common.dense_init_(self.lm_head, gen)
-        for blk in self.blocks:
-            blk.mixer.init_(gen)
-            blk.ffn.init_(gen)
+        stacks = ((self.encoder, self.decoder) if self.cfg.encoder_decoder
+                  else (self.blocks,))
+        for stack in stacks:
+            for blk in stack:
+                blk.init_(gen)
         return self
+
+    # ------------------------------------------------------- embeddings --
+    def _embed(self, batch):
+        cfg = self.cfg
+        x = self.embed[batch["tokens"]]
+        if cfg.frontend == "vision" and "vision_embeds" in batch:
+            # Modality stub: precomputed patch embeddings replace the
+            # token embeddings where the frontend flags them.
+            x = torch.where(batch["vision_mask"][..., None],
+                            batch["vision_embeds"].to(x.dtype), x)
+        if cfg.positional == "sinusoidal":
+            x = x + common.sinusoid_at(batch["positions"],
+                                       cfg.d_model).to(x.dtype)
+        return x
+
+    def _positions(self, batch):
+        if self.cfg.positional == "mrope":
+            return batch["positions3"]
+        return batch["positions"]
 
     # ------------------------------------------------------------ blocks --
     def _norm(self, p, x):
@@ -103,19 +185,32 @@ class Model(nn.Module):
             return mlp.moe(p.ffn, self.cfg, x)
         return mlp.mlp(p.ffn, x, p.ffn.kind), None
 
-    def _block_apply(self, p, x, positions):
-        """One causal [norm -> attention -> norm -> FFN] block; returns
-        (x, aux)."""
+    def _block_apply(self, p, x, positions, causal=True):
+        """One [norm -> attention -> norm -> FFN] block, through the
+        config's attention impl; returns (x, aux)."""
         cfg = self.cfg
         h = self._norm(p.norm1, x)
         if cfg.mla:
-            att, _ = attention.mla_attention(p.mixer, cfg, h, positions)
+            att, _ = attention.mla_attention(p.mixer, cfg, h, positions,
+                                             causal=causal)
         else:
             att = attention.attention(p.mixer, cfg, h, positions,
-                                      impl=cfg.attn_impl)
+                                      causal=causal, impl=cfg.attn_impl)
         x = x + att
         out, aux = self._ffn(p, self._norm(p.norm2, x))
         return x + out, aux
+
+    def _encode(self, batch):
+        """Whisper's encoder over ``audio_embeds`` with sinusoidal
+        positions 0..S_enc-1; non-causal, through the config's impl."""
+        cfg = self.cfg
+        enc = batch["audio_embeds"].to(self.dtype)
+        frames = torch.arange(enc.shape[1], device=enc.device)
+        enc = enc + common.sinusoid_at(frames.expand(enc.shape[:2]),
+                                       cfg.d_model).to(enc.dtype)
+        for blk in self.encoder:
+            enc, _ = self._block_apply(blk, enc, None, causal=False)
+        return self._norm(self.enc_norm, enc)
 
     def _lm_head(self, x):
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -124,16 +219,42 @@ class Model(nn.Module):
     # ------------------------------------------------------------- train --
     @torch.no_grad()
     def train_logits(self, batch):
-        """Full-sequence forward. batch: tokens (B,S), positions (B,S).
-        Returns (logits (B,S,V), moe_aux_loss): the MoE blocks' summed
-        aux losses, 0.0 for a dense model."""
-        x = self.embed[batch["tokens"]]
-        positions = batch["positions"]
+        """Full-sequence forward. Returns (logits (B,S,V), moe_aux_loss):
+        the MoE blocks' summed aux losses, 0.0 without MoE."""
+        cfg = self.cfg
+        x = self._embed(batch)
+        positions = self._positions(batch)
         aux_total = 0.0
-        for blk in self.blocks:
-            x, aux = self._block_apply(blk, x, positions)
-            if aux is not None:
-                aux_total = aux_total + aux
+        if cfg.encoder_decoder:
+            enc = self._encode(batch)
+            for blk in self.decoder:
+                # the decoder's attention is always the plain path, as in
+                # the reference (it passes no impl)
+                x = x + attention.attention(blk.mixer, cfg,
+                                            self._norm(blk.norm1, x),
+                                            positions)
+                x = x + attention.attention(blk.cross, cfg,
+                                            self._norm(blk.norm_x, x),
+                                            positions, causal=False,
+                                            kv_input=enc)
+                x = x + self._ffn(blk, self._norm(blk.norm2, x))[0]
+        elif cfg.ssm:
+            for blk in self.blocks:
+                x = x + ssm.mamba(blk.mixer, cfg,
+                                  self._norm(blk.norm1, x))[0]
+        elif cfg.hybrid:
+            for i, blk in enumerate(self.blocks):
+                if is_attention_layer(i):
+                    x, _ = self._block_apply(blk, x, positions)
+                    continue
+                x = x + rglru.rglru(blk.mixer, cfg,
+                                    self._norm(blk.norm1, x))[0]
+                x = x + self._ffn(blk, self._norm(blk.norm2, x))[0]
+        else:
+            for blk in self.blocks:
+                x, aux = self._block_apply(blk, x, positions)
+                if aux is not None:
+                    aux_total = aux_total + aux
         x = self._norm(self.final_norm, x)
         return self._lm_head(x), aux_total
 
@@ -145,33 +266,86 @@ class Model(nn.Module):
     # ----------------------------------------------------------- serving --
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         cfg = self.cfg
-        lead = (cfg.num_layers, batch_size, max_len)
-        if cfg.mla:
-            shapes = {"c": lead + (cfg.kv_lora_rank,),
-                      "kr": lead + (cfg.qk_rope_dim,)}
+        b, l = batch_size, cfg.num_layers
+        kv = (cfg.num_kv_heads, cfg.head_dim)
+        f32 = {"h"}                           # recurrent state stays f32
+        if cfg.encoder_decoder:
+            shapes = {"k": (l, b, max_len) + kv, "v": (l, b, max_len) + kv,
+                      "ek": (l, b, cfg.encoder_seq) + kv,
+                      "ev": (l, b, cfg.encoder_seq) + kv}
+        elif cfg.ssm:
+            din = cfg.ssm_expand * cfg.d_model
+            shapes = {"conv": (l, b, cfg.ssm_conv - 1, din),
+                      "h": (l, b, din, cfg.ssm_state)}
+        elif cfg.hybrid:
+            w = cfg.lru_width or cfg.d_model
+            n_att = sum(is_attention_layer(i) for i in range(l))
+            wlen = min(max_len, cfg.sliding_window or max_len)
+            shapes = {"conv": (l - n_att, b, rglru.CONV_WIDTH - 1, w),
+                      "h": (l - n_att, b, w),
+                      "k": (n_att, b, wlen) + kv, "v": (n_att, b, wlen) + kv}
+        elif cfg.mla:
+            shapes = {"c": (l, b, max_len, cfg.kv_lora_rank),
+                      "kr": (l, b, max_len, cfg.qk_rope_dim)}
         else:
-            kv = lead + (cfg.num_kv_heads, cfg.head_dim)
-            shapes = {"k": kv, "v": kv}
-        return {k: torch.zeros(s, dtype=self.dtype, device=self.device)
+            shapes = {"k": (l, b, max_len) + kv, "v": (l, b, max_len) + kv}
+        return {k: torch.zeros(s, dtype=torch.float32 if k in f32
+                               else self.dtype, device=self.device)
                 for k, s in shapes.items()}
 
     @torch.no_grad()
     def decode_step(self, cache, batch):
-        """One-token decode. batch: tokens (B,1), positions (B,1).  Writes
-        the token's k/v (MLA: latent and rope key) into ``cache`` in place
-        and returns (logits (B,1,V), cache)."""
+        """One-token decode. batch: tokens (B,1), positions (B,1) (and
+        positions3 (3,B,1) for M-RoPE).  Writes the token's state into
+        ``cache`` in place (k/v, MLA's latent and rope key, the
+        recurrences' conv tails and states) and returns (logits (B,1,V),
+        cache)."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"]]
-        positions = batch["positions"]
-        for i, blk in enumerate(self.blocks):
-            h = self._norm(blk.norm1, x)
-            if cfg.mla:
-                x = x + attention.mla_decode(blk.mixer, cfg, h, positions,
-                                             cache["c"][i], cache["kr"][i])
-            else:
+        x = self._embed(batch)
+        positions = self._positions(batch)
+        if cfg.encoder_decoder:
+            for i, blk in enumerate(self.decoder):
                 x = x + attention.decode_attention(
-                    blk.mixer, cfg, h, positions, cache["k"][i],
-                    cache["v"][i])
-            x = x + self._ffn(blk, self._norm(blk.norm2, x))[0]
+                    blk.mixer, cfg, self._norm(blk.norm1, x), positions,
+                    cache["k"][i], cache["v"][i])
+                x = x + attention.decode_cross_attention(
+                    blk.cross, cfg, self._norm(blk.norm_x, x),
+                    cache["ek"][i], cache["ev"][i])
+                x = x + self._ffn(blk, self._norm(blk.norm2, x))[0]
+        elif cfg.ssm:
+            for i, blk in enumerate(self.blocks):
+                out, state = ssm.mamba_decode(
+                    blk.mixer, cfg, self._norm(blk.norm1, x),
+                    (cache["conv"][i], cache["h"][i]))
+                self._write_state(cache, i, state)
+                x = x + out
+        else:
+            ia = ir = 0
+            for i, blk in enumerate(self.blocks):
+                h = self._norm(blk.norm1, x)
+                if cfg.hybrid and not is_attention_layer(i):
+                    out, state = rglru.rglru_decode(
+                        blk.mixer, cfg, h, (cache["conv"][ir],
+                                            cache["h"][ir]))
+                    self._write_state(cache, ir, state)
+                    ir += 1
+                elif cfg.mla:
+                    out = attention.mla_decode(blk.mixer, cfg, h, positions,
+                                               cache["c"][ia],
+                                               cache["kr"][ia])
+                    ia += 1
+                else:
+                    out = attention.decode_attention(
+                        blk.mixer, cfg, h, positions, cache["k"][ia],
+                        cache["v"][ia])
+                    ia += 1
+                x = x + out
+                x = x + self._ffn(blk, self._norm(blk.norm2, x))[0]
         x = self._norm(self.final_norm, x)
         return self._lm_head(x), cache
+
+    @staticmethod
+    def _write_state(cache, i, state):
+        conv, h = state
+        cache["conv"][i].copy_(conv)                        # in place
+        cache["h"][i].copy_(h)

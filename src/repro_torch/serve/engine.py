@@ -26,9 +26,9 @@ reference.  On top of the decode loop it carries:
 All timing is virtual (:class:`repro_torch.serve.traffic.VirtualClock`):
 a run is a pure function of (scenario, fault profile, seed).
 
-``Model.decode_step`` updates the KV cache in place, so every slice the
-engine keeps across a decode (rollback of a frozen slot, the host snapshot
-of a preempted one) is a copy.
+``Model.decode_step`` updates the cache (KV, recurrent state) in place, so
+every slice the engine keeps across a decode (rollback of a frozen slot,
+the host snapshot of a preempted one) is a copy.
 """
 
 from __future__ import annotations
@@ -429,8 +429,16 @@ class ServeEngine:
 
     # ------------------------------------------------------------- steps --
     def _batch(self, tokens_np, positions_np):
-        return {"tokens": torch.from_numpy(tokens_np).to(self.device),
-                "positions": torch.from_numpy(positions_np).to(self.device)}
+        """The decode batch; M-RoPE gets the slot position on all three
+        sections.  An enc-dec model reads its encoder K/V from the cache
+        (``ek``/``ev``), which stay init_cache's zeros: as in the
+        reference, nothing here builds them."""
+        b = {"tokens": torch.from_numpy(tokens_np).to(self.device),
+             "positions": torch.from_numpy(positions_np).to(self.device)}
+        if self.cfg.positional == "mrope":
+            b["positions3"] = b["positions"].expand(
+                (3,) + b["positions"].shape)
+        return b
 
     def _sample(self, logits_row: np.ndarray) -> int:
         if self.temperature > 0:

@@ -38,7 +38,9 @@ def test_port_and_chip_smoke_import_without_jax():
               "repro_torch.benchmarks.dse",
               "repro_torch.benchmarks.kv_dispersion",
               "repro_torch.benchmarks.serving_slo",
-              "repro_torch.configs.deepseek_v2_lite_16b"):
+              "repro_torch.configs.deepseek_v2_lite_16b",
+              "repro_torch.models.ssm", "repro_torch.models.rglru",
+              "repro_torch.models.model", "repro_torch.models.convert"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -236,9 +236,29 @@ def test_mla_prefill_decode_consistency_moe_off():
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b",
                                   "qwen2-vl-7b", "whisper-large-v3"])
-def test_other_families_still_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(treg.get(arch).reduced(), device="cpu")
+def test_other_families_build_with_reference_caches(arch):
+    """The port's own reduced config builds with the port's seeded init,
+    holds as many weights as the reference's tree, lays its decode cache
+    out as the reference's init_cache (names, shapes, dtypes) and takes
+    a finite decode step."""
+    cfg = treg.get(arch).reduced()
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    jm = get_model(jreg.get(arch).reduced())
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    assert sum(v.numel() for v in model.state_dict().values()) == \
+        sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    b, smax = 2, 16
+    jcache = jax.eval_shape(lambda: jm.init_cache(b, smax))
+    cache = model.init_cache(b, smax)
+    assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+            for k, v in cache.items()} == \
+        {k: (tuple(v.shape), str(v.dtype)) for k, v in jcache.items()}
+    batch = _tbatch(np.ones((b, 1), np.int32), np.zeros((b, 1), np.int32))
+    if cfg.positional == "mrope":
+        batch["positions3"] = batch["positions"].expand(3, b, 1)
+    logits, _ = model.decode_step(cache, batch)
+    assert logits.shape == (b, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 # -------------------------------------------------------------- serving --
@@ -284,17 +304,15 @@ def test_serve_cli_runs_moe_archs_on_cpu(arch, capsys):
 
 
 def test_dispersed_mode_rejects_recurrent_state():
-    """The reference's refusal, with its words.  The port builds no
-    recurrent model yet, so the engine gets the recurrent config beside a
-    dense model: the refusal looks at the config only."""
-    dense = Model(treg.get("phi3-mini-3.8b").reduced(), device="cpu")
+    """The reference's refusal, with its words, on the recurrent models
+    themselves; both serve resident."""
     for arch in ("falcon-mamba-7b", "recurrentgemma-2b"):
+        cfg = treg.get(arch).reduced()
+        model = Model(cfg, device="cpu")
         with pytest.raises(ValueError, match="recurrent state"):
-            ServeEngine(treg.get(arch).reduced(), dense, slots=2,
-                        max_len=MAX_LEN, kv_mode="dispersed",
-                        page_size=PAGE, device="cpu")
-    ServeEngine(treg.get("falcon-mamba-7b").reduced(), dense, slots=2,
-                max_len=MAX_LEN, device="cpu")
+            ServeEngine(cfg, model, slots=2, max_len=MAX_LEN,
+                        kv_mode="dispersed", page_size=PAGE, device="cpu")
+        ServeEngine(cfg, model, slots=2, max_len=MAX_LEN, device="cpu")
 
 
 @pytest.mark.parametrize("shim", sorted(SHIMS))

@@ -20,7 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import registry as jreg  # noqa: E402
 from repro.models import get_model  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
-from repro_torch.models import Model, common, convert, mlp  # noqa: E402
+from repro_torch.models import (Model, common, convert, mlp,  # noqa: E402
+                                rglru, ssm)
 
 # f32 logits are O(1-10); both sides compute the same f32 arithmetic in
 # another order.  bf16 logits here stay below 8, where one bf16 ulp is
@@ -210,15 +211,104 @@ def test_mlp_matches(kind):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def _family_batch(cfg, b=2, s=12, seed=0):
+    """A batch for any family: tokens and positions, M-RoPE's positions3
+    with different rows per section, whisper's audio frames."""
+    rng = np.random.default_rng(seed)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32), "positions": pos}
+    if cfg.positional == "mrope":
+        batch["positions3"] = np.stack([pos, pos // 2, pos % 3])
+    if cfg.encoder_decoder:
+        batch["audio_embeds"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 @pytest.mark.parametrize("arch,change", [
     ("recurrentgemma-2b", {}), ("falcon-mamba-7b", {}),
     ("qwen2-vl-7b", {}), ("whisper-large-v3", {}),
     ("phi3-mini-3.8b", {"attn_bias": True}),
     ("phi3-mini-3.8b", {"sliding_window": 8})])
-def test_other_families_not_ported_yet(arch, change):
-    cfg = dataclasses.replace(treg.get(arch).reduced(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, device="cpu")
+def test_other_families_match_reference_logits(arch, change):
+    """Each family, and the dense model with the attention features only
+    those use (random non-zero biases; a window of 8 under 12 tokens),
+    builds and gives the reference's logits."""
+    jcfg = dataclasses.replace(jreg.get(arch).reduced(), dtype="float32",
+                               **change)
+    jm = get_model(jcfg)
+    rng = np.random.default_rng(3)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.asarray(rng.standard_normal(a.shape), a.dtype)
+        if path[-1].key in ("bq", "bk", "bv") else a,
+        jm.init(jax.random.PRNGKey(0)))
+    cfg = convert.config_from_jax(jcfg)
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(convert.params_from_jax(
+        cfg, jax.tree.map(np.asarray, params)))
+    batch = _family_batch(cfg)
+    want, _ = jm.train_logits(params, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+    got, _ = model.train_logits({
+        k: torch.from_numpy(v).long() if v.dtype == np.int32
+        else torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL_F32,
+                               atol=TOL_F32)
+
+
+def _port_leaves(cfg, tree):
+    """(the port's parameter name, the reference leaf) for every leaf:
+    stacked layers split out, DeepSeek's dense_blocks first, the
+    hybrid's list as it is."""
+    off = cfg.first_dense_layers if cfg.moe else 0
+    dest = {"dense_blocks": ("blocks", 0), "blocks": ("blocks", off),
+            "encoder": ("encoder", 0), "decoder": ("decoder", 0)}
+    for key, sub in tree.items():
+        if key in dest and isinstance(sub, dict):
+            name, start = dest[key]
+            for leaf_name, a in convert._flatten(sub):
+                for i in range(a.shape[0]):
+                    yield f"{name}.{start + i}.{leaf_name}", a[i]
+        elif isinstance(sub, (dict, list)):
+            yield from convert._flatten(sub, f"{key}.")
+        else:
+            yield key, sub
+
+
+@pytest.mark.parametrize("arch", sorted(jreg.ARCHS))
+def test_params_from_jax_keeps_reference_dtypes(arch):
+    """A bf16 tree of every family: each converted tensor, and each
+    tensor of the loaded port model, has the dtype and the values of its
+    reference leaf (float32 for the norms, the router and the
+    recurrences' constants, bf16 for the rest)."""
+    jcfg = dataclasses.replace(jreg.get(arch).reduced(), dtype="bfloat16")
+    tree = jax.tree.map(np.asarray,
+                        get_model(jcfg).init(jax.random.PRNGKey(0)))
+    cfg = convert.config_from_jax(jcfg)
+    sd = convert.params_from_jax(cfg, tree)
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(sd)
+    got = model.state_dict()
+    leaves = dict(_port_leaves(cfg, tree))
+    assert set(got) == set(sd) == set(leaves)
+    assert {str(a.dtype) for a in leaves.values()} == {"float32", "bfloat16"}
+    for name, a in leaves.items():
+        want = common.DTYPES[str(a.dtype)]
+        assert sd[name].dtype == got[name].dtype == want, name
+        np.testing.assert_array_equal(got[name].float().numpy(),
+                                      np.asarray(a, np.float32))
+    # the leaves each family keeps in f32, by name
+    f32 = {name.rsplit(".", 1)[-1] for name, t in got.items()
+           if t.dtype == torch.float32}
+    want = {"scale"}
+    for names, owner in (({"bias"}, cfg.norm_kind == "layernorm"),
+                         ({"router"}, cfg.moe),
+                         ({"a_log", "dt_bias", "d_skip"}, cfg.ssm),
+                         ({"ba", "bx", "lam"}, cfg.hybrid)):
+        if owner:
+            want |= names
+    assert f32 == want
 
 
 def test_entry_points_default_to_cuda():
@@ -229,3 +319,7 @@ def test_entry_points_default_to_cuda():
         Model(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         common.Norm(8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ssm.Mamba(treg.get("falcon-mamba-7b").reduced(), torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rglru.RGLRU(treg.get("recurrentgemma-2b").reduced(), torch.float32)
