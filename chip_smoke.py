@@ -77,6 +77,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                version of the engine run; K2 timed alone on
                cluster_sweep's 4 KB grid (per kernel, beside its bound
                and its longest chain);
+     network   the bridge (P6): network_sweep through
+               repro_torch.benchmarks.run uncut (five registry models
+               lowered to 35 net:* tile programs, 5 capacities, 2 L1
+               geometries: 350 points) through a new Session, K1 on the
+               card: every field of its 50 rows but the wall clock held
+               exactly to BENCH_core.json, with its networks, points and
+               fold certificate; its wall, prepare and engine seconds,
+               engine calls, K1a/K1b launches and K1's device ms;
   4. prefill   full-width phi3-mini-3.8b (random weights from a seeded
                generator): Model.prefill on 4 x 512 tokens with the flash
                kernel vs the plain sdpa path, counting kernel launches (all
@@ -149,9 +157,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
                NORM_ROUNDS rounds at (8192, 4096) bf16 and f32 and
                (2048, 3072) bf16) beside its
                bound, its plain twin and the library call computing the
-               same function.
+               same function;
+  8. train     the training path (P7a): full-width phi3-mini-3.8b (bf16,
+               seeded init, every earlier model freed) trained through
+               Trainer for 3 steps of 4 x 256 tokens, microbatches 1:
+               per step its loss (finite), grad norm, learning rate,
+               wall, stream ms and peak memory (the first step's device
+               ms and costliest device functions from torch.profiler),
+               then tokens/s and the achieved TFLOP/s (6 N tokens over
+               the later steps' wall); a checkpoint of params and
+               optimizer
+               state, at 16 of the 32 layers (full width: the full
+               depth's 61.1 GB exceed the disk a run may write), saved
+               and restored into a fresh Trainer, held leaf by leaf,
+               which takes one more step; then a reduced f32 copy's step
+               on the card against the same step on the CPU (loss and
+               masters within 1e-4).
 
-The last lines are the kernels' JSON record, the card's name and power
+The earlier phases run their models under torch.no_grad (the models'
+parameters are trainable).  The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line {"ok": true, "device": {...}}.  Without a CUDA
 device the script prints no result and exits 1.
 """
@@ -160,9 +184,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -198,7 +224,10 @@ from repro_torch.models import Model, attention  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.models import rglru as trglru  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.serve import TRAFFIC_MIXES, ServeEngine, generate  # noqa: E402
+from repro_torch.train import TrainConfig, Trainer  # noqa: E402
 
 ARCH = "phi3-mini-3.8b"
 PREFILL_BATCH, PREFILL_LEN = 4, 512
@@ -1800,6 +1829,90 @@ def phase_cluster(session) -> dict:
                 main_path_s=main_s, seconds=seconds)
 
 
+# ----------------------------------------------------------------- network --
+
+# The fields of network_sweep's rows held to BENCH_core.json (every field
+# but the wall clock's us_per_call), the labels that locate a row, and
+# the summaries held beside them
+NETWORK_ROW_KEYS = ("name", "capacity", "l1_kb")
+NETWORK_EXTRA_HELD = ("networks", "points", "fold_exact_fraction")
+
+
+def phase_network() -> dict:
+    """The bridge (P6) on the card: python -m
+    repro_torch.benchmarks.run network_sweep, in this process, uncut (5
+    models lowered to 35 net:* kernels, 5 capacities, 2 L1 geometries:
+    350 points) through a new Session under torch.profiler.  Every field
+    of its 50 rows but us_per_call held exactly to BENCH_core.json, and
+    its networks, points (350) and fold_exact_fraction (1.0); K1a and K1b
+    launched, no plain version of the engine run.  Reports the wall,
+    prepare and engine seconds, engine calls, launches and K1's device
+    ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    want = json.loads((ROOT / "BENCH_core.json").read_text())[
+        "suites"]["network_sweep"]["extra"]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "network_sweep.json"
+    for fn in ENGINE_KERNELS.values():
+        fn.launches = 0
+    text = io.StringIO()
+    with plain_engine_calls() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                contextlib.redirect_stdout(text):
+            rc = bench_run.main(["--json", str(path), "network_sweep"],
+                                session=api.Session())
+            torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in ENGINE_KERNELS.items()}
+    check(rc == 0, f"network: run.py network_sweep exited {rc}")
+    rec = json.loads(path.read_text())["suites"]["network_sweep"]
+    got = rec["extra"]
+    index = {tuple(r[k] for k in NETWORK_ROW_KEYS): r for r in got["rows"]}
+    held, wrong = 0, []
+    check(len(got["rows"]) == len(want["rows"]) == 50,
+          f"network: {len(got['rows'])} rows, BENCH_core.json "
+          f"{len(want['rows'])}")
+    for w in want["rows"]:
+        g = index.get(tuple(w[k] for k in NETWORK_ROW_KEYS))
+        check(g is not None, f"network: no row for {w}")
+        check(set(g) == set(w), f"network: row fields {sorted(g)}")
+        for f in sorted(set(w) - {"us_per_call"}):
+            if type(g[f]) is not type(w[f]) or g[f] != w[f]:
+                wrong.append(f"{[w[k] for k in NETWORK_ROW_KEYS]} {f}: "
+                             f"{g[f]!r} != {w[f]!r}")
+            else:
+                held += 1
+    for key in NETWORK_EXTRA_HELD:
+        if got[key] != want[key]:
+            wrong.append(f"extra.{key}")
+    out = dict(rows=rec["rows"], wall_s=rec["wall_s"],
+               prepare_s=rec["prepare_s"], engine_s=rec["engine_s"],
+               dispatches=rec["dispatches"], launches=launches,
+               points=got["points"], kernels=len({
+                   k for n in got["networks"] for k in n["kernels"]}),
+               fold_exact_fraction=got["fold_exact_fraction"],
+               k1_device_ms=_engine_device_ms(prof), held=held,
+               profiled_s=round(profiled_s, 3))
+    log("network", **out, plain_calls=plain)
+    log("network", held_to_bench=held, equal=not wrong)
+    check(not wrong, f"network: values differ from BENCH_core.json: "
+          f"{wrong[:20]}")
+    check(got["points"] == 350 and got["fold_exact_fraction"] == 1.0,
+          f"network: points {got['points']}, fold_exact_fraction "
+          f"{got['fold_exact_fraction']}")
+    check(all(rec["launches"][k] == n for k, n in launches.items())
+          and all(launches.values()),
+          f"network: K1 launches {launches}, the report's "
+          f"{rec['launches']}")
+    check(not any(plain.values()), f"network: a plain version of the "
+          f"engine ran on the card's path: {plain}")
+    return out
+
+
 # ----------------------------------------------------------------- prefill --
 
 def _prompt_batch(cfg, b, s, device, seed=0):
@@ -2631,6 +2744,246 @@ def phase_serving() -> dict:
     return out
 
 
+# ------------------------------------------------------------------- train --
+
+# [train]: phi3-mini-3.8b at its published widths (bf16, seeded init),
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_LEN tokens, microbatches 1
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 256, 3
+# Reduced f32 copy, one step on the card vs the CPU: loss and masters
+TRAIN_TOL = 1e-4
+# The checkpoint's directory (listed in .gitignore, removed at the end)
+TRAIN_CKPT = ROOT / ".train_ckpt"
+# The checkpoint round trip runs at this depth, full width: it stores 16 B
+# a parameter (the bf16 params as f32, f32 m, v and master), counted
+# 61.1 GB at full depth against the 45 GiB of disk a smoke run may write;
+# 16 of 32 layers store 32.1 GB
+TRAIN_CKPT_LAYERS = 16
+# Leaves whose params and optimizer state are compared after the restore
+TRAIN_HELD_LEAVES = ("embed", "blocks.0.mixer.wq", "final_norm.scale")
+
+
+def _trainer(cfg, steps: int, device: str = "cuda",
+             ckpt: Path = TRAIN_CKPT) -> Trainer:
+    tc = TrainConfig(seq_len=TRAIN_LEN, global_batch=TRAIN_BATCH,
+                     microbatches=1, steps=steps, checkpoint_every=10 ** 9,
+                     checkpoint_dir=str(ckpt), seed=0, log_every=10 ** 9,
+                     device=device)
+    return Trainer(cfg, tc, OptConfig(warmup_steps=1,
+                                      total_steps=TRAIN_STEPS + 1))
+
+
+def top_device_ms(prof, n: int = 6) -> dict:
+    """The ``n`` device functions of a profiler window with the most
+    device time: name (cut to 48 characters) -> summed ms."""
+    ms = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if us:
+            ms[e.key[:48]] = ms.get(e.key[:48], 0.0) + us / 1e3
+    top = sorted(ms.items(), key=lambda kv: -kv[1])[:n]
+    return {k: round(v, 3) for k, v in top}
+
+
+def _timed_steps(trainer, records: list, before=None) -> None:
+    """Wrap the trainer's step: per step its wall (host clock around the
+    step and a synchronise), its stream ms (CUDA events) and its peak
+    memory; the first step, the warm-up, also runs under torch.profiler
+    for its device operations and ms and its costliest device functions
+    (the profiler slows the host's issue by a third, so the later steps,
+    whose walls give the rates, run without it).  ``before(model, opt)``
+    runs ahead of the first step."""
+    from torch.profiler import ProfilerActivity, profile
+    inner = trainer._step_fn
+
+    def step(model, opt, err, batch):
+        profiled = not records
+        if before is not None and profiled:
+            before(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        ctx = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+               else contextlib.nullcontext())
+        with ctx as prof:
+            # the wall leaves out the profiler's start and its teardown
+            t0 = time.perf_counter()
+            e0.record()
+            out = inner(model, opt, err, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rec = dict(wall_s=wall, stream_ms=e0.elapsed_time(e1),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if profiled:
+            rec["device_ops"], rec["device_ms"] = device_ops(prof)
+            rec["top_device_ms"] = top_device_ms(prof)
+        records.append(rec)
+        return out
+    trainer._step_fn = step
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_steps(cfg) -> dict:
+    """TRAIN_STEPS steps of ``cfg`` through Trainer: loss, grad norm,
+    lr, wall, stream ms, peak memory (the first step's device ms from
+    torch.profiler); tokens/s and 6 N tokens / step wall over the later
+    steps."""
+    t0 = time.perf_counter()
+    tr = _trainer(cfg, TRAIN_STEPS)
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in tr.model.parameters())
+    out = dict(arch=cfg.name, layers=cfg.num_layers, d=cfg.d_model,
+               dtype=cfg.dtype, params=n, weight_gb=weight_gb(tr.model),
+               opt_gb=sum(t.numel() * t.element_size() for part in (
+                   "m", "v", "master") for t in state["opt"][part].values())
+               / 1e9, tokens_per_step=TRAIN_BATCH * TRAIN_LEN,
+               build_and_init_s=round(build_s, 3))
+    log("train", **out)
+    steps: list = []
+    _timed_steps(tr, steps)
+    hist = tr.run(state=state)["history"]
+    for h, s in zip(hist, steps):
+        log("train", step=h["step"], loss=h["loss"],
+            grad_norm=h["grad_norm"], lr=h["lr"], **s)
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"train: step {h['step']} loss {h['loss']} grad_norm "
+              f"{h['grad_norm']}")
+    check(len(hist) == TRAIN_STEPS, f"train: {len(hist)} steps")
+    wall = statistics.median(s["wall_s"] for s in steps[1:])
+    out.update(steps=[dict(h, **s) for h, s in zip(hist, steps)],
+               step_wall_s=wall,
+               tokens_per_s=out["tokens_per_step"] / wall,
+               tflops=6 * n * out["tokens_per_step"] / wall / 1e12,
+               peak_gb=max(s["peak_gb"] for s in steps))
+    del tr, state
+    _free()
+    return out
+
+
+def checkpoint_roundtrip(cfg) -> dict:
+    """TRAIN_STEPS steps of ``cfg``, a checkpoint of its params and
+    optimizer state, then a fresh Trainer that restores it (held leaf by
+    leaf) and takes one more step."""
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    tr = _trainer(cfg, TRAIN_STEPS)
+    state = tr.init_state()
+    tr.run(state=state)
+    like = {"params": state["params"], "opt": state["opt"]}
+    ckpt_bytes = sum(t.numel() * 4 for part in (
+        like["params"], like["opt"]["m"], like["opt"]["v"],
+        like["opt"]["master"]) for t in part.values())
+    free_bytes = shutil.disk_usage(ROOT).free
+    check(free_bytes > 1.1 * ckpt_bytes, f"train: {free_bytes} bytes free "
+          f"on disk, the checkpoint needs {ckpt_bytes}")
+    held = {k: [like["params"][k].detach().cpu()]
+            + [like["opt"][part][k].cpu() for part in ("m", "v", "master")]
+            for k in TRAIN_HELD_LEAVES}
+    t0 = time.perf_counter()
+    tr.ckpt.save(TRAIN_STEPS, like)
+    snapshot_s = time.perf_counter() - t0
+    tr.ckpt.wait()
+    out = dict(layers=cfg.num_layers, checkpoint_gb=ckpt_bytes / 1e9,
+               snapshot_s=round(snapshot_s, 3),
+               save_s=round(time.perf_counter() - t0, 3))
+    log("train", check="checkpoint", **out)
+    del tr, state, like
+    _free()
+
+    def held_equal(model, opt):
+        params = dict(model.named_parameters())
+        for k, (p, m, v, master) in held.items():
+            check(all(torch.equal(a.cpu(), b) for a, b in (
+                (params[k].detach(), p), (opt["m"][k], m),
+                (opt["v"][k], v), (opt["master"][k], master))),
+                f"train: {k} differs after the restore")
+        check(int(opt["step"]) == TRAIN_STEPS,
+              f"train: restored step {int(opt['step'])}")
+
+    t0 = time.perf_counter()
+    tr = _trainer(cfg, TRAIN_STEPS + 1)
+    steps: list = []
+    _timed_steps(tr, steps, before=held_equal)
+    hist = tr.run()["history"]
+    check([h["step"] for h in hist] == [TRAIN_STEPS],
+          f"train: the restored run took steps {[h['step'] for h in hist]}")
+    check(np.isfinite(hist[0]["loss"]),
+          f"train: restored step loss {hist[0]['loss']}")
+    out["restored"] = dict(hist[0], **steps[0], held=len(held) * 4,
+                           init_restore_and_step_s=round(
+                               time.perf_counter() - t0, 3))
+    log("train", check="restored", restored_from=TRAIN_STEPS,
+        **out["restored"])
+    del tr
+    _free()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return out
+
+
+def check_train_reduced() -> dict:
+    """A reduced f32 phi3-mini, one Trainer step on the card and the same
+    step, weights and batch on the CPU: loss and updated masters within
+    TRAIN_TOL."""
+    cfg = dataclasses.replace(get(ARCH).reduced(), dtype="float32")
+    cpu = _trainer(cfg, 1, "cpu", TRAIN_CKPT / "reduced")
+    gpu = _trainer(cfg, 1, "cuda", TRAIN_CKPT / "reduced")
+    s_cpu = cpu.init_state()
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    opt = tadamw.init_state(dict(gpu.model.named_parameters()))
+    batch = cpu._make_batch(0)
+    _, o_cpu, _, m_cpu = cpu._step_fn(cpu.model, s_cpu["opt"], None, batch)
+    _, o_gpu, _, m_gpu = gpu._step_fn(
+        gpu.model, opt, None, {k: v.cuda() for k, v in batch.items()})
+    loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"]))
+    master_err = max(float((o_gpu["master"][k].cpu() - w).abs().max())
+                     for k, w in o_cpu["master"].items())
+    out = dict(check="reduced_f32_card_vs_cpu", loss=float(m_cpu["loss"]),
+               loss_err=loss_err, master_err=master_err,
+               grad_norm=float(m_cpu["grad_norm"]),
+               grad_norm_card=float(m_gpu["grad_norm"]))
+    log("train", **out)
+    check(loss_err <= TRAIN_TOL and master_err <= TRAIN_TOL,
+          f"train: reduced f32 card vs CPU loss {loss_err}, masters "
+          f"{master_err}")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return out
+
+
+def phase_train(card: str) -> dict:
+    """The training path (P7a) on the card: train_steps at full depth
+    (its measured peak, 62.8 GB on an "NVIDIA H100 80GB HBM3, 700.00 W",
+    fits), the checkpoint round trip at
+    TRAIN_CKPT_LAYERS layers, then the reduced f32 check.  Writes its
+    figures to chiprun_out/train.json.  ``card`` is nvidia-smi's name
+    and power limit, printed beside the rates."""
+    cfg = get(ARCH)
+    _free()
+    t0 = time.perf_counter()
+    out = train_steps(cfg)
+    log("train", step_wall_s=out["step_wall_s"],
+        tokens_per_s=out["tokens_per_s"], achieved_tflops=out["tflops"],
+        peak_gb=out["peak_gb"], card=card)
+    log("train", checkpoint_depth_cut=f"{TRAIN_CKPT_LAYERS} of "
+        f"{cfg.num_layers} layers")
+    out["checkpoint"] = checkpoint_roundtrip(
+        dataclasses.replace(cfg, num_layers=TRAIN_CKPT_LAYERS))
+    out["reduced"] = check_train_reduced()
+    out["seconds"] = round(time.perf_counter() - t0, 2)
+    log("train", seconds=out["seconds"])
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "train.json").write_text(json.dumps(dict(out, card=card),
+                                                   indent=1))
+    return out
+
+
 # ---------------------------------------------------------------- roofline --
 
 # The reference's measured grid (benchmarks/roofline.py): 2 GEMM cases x
@@ -3042,10 +3395,10 @@ def phase_norm_timing() -> dict:
 
 def engine_entry(name, part, at, engine, twin) -> dict:
     """The kernels line's record of K1a (``part`` "reg") or K1b ("l1"):
-    its launches on the engine's paper path and in the [paper] phase's
-    suites (the values each held to BENCH_core.json, and each suite's
-    figures), the largest |kernel - plain|
-    of its checks, its device time, bound and longest chain at the
+    its launches on the engine's paper path, in the [paper] phase's
+    suites, the [cluster] and [network] phases (the values each held to
+    BENCH_core.json, and each suite's figures), the largest |kernel -
+    plain| of its checks, its device time, bound and longest chain at the
     timing input ``at``, and every timing input's figures (with the whole
     K1 call's time and bound)."""
     t = engine["timing"][at]
@@ -3068,8 +3421,10 @@ def engine_entry(name, part, at, engine, twin) -> dict:
         plain_inputs=dict(programs=twin["programs"], rows=max(twin["rows"]),
                           lanes=twin[f"{part}_lanes"]),
         ms_at_plain_inputs=twin[f"{part}_ms"], library_ms=None,
-        held_to_bench=engine["held"] + engine["paper"]["held"],
-        timing=engine["timing"], paper_suites=engine["paper"]["suites"])
+        held_to_bench=(engine["held"] + engine["paper"]["held"]
+                       + engine["network"]["held"]),
+        timing=engine["timing"], paper_suites=engine["paper"]["suites"],
+        network_suite=engine["network"])
 
 
 def cluster_entry(cluster) -> dict:
@@ -3157,35 +3512,43 @@ def main() -> int:
         "launches"], f"paper: K1 launches {paper_launches}, the report's "
           f"{paper['launches']}")
     cluster = phase_cluster(session)
+    del session
+    # [network] registers the bridge's net:* kernels, so it runs after
+    # every phase that walks the rvv registry
+    network = phase_network()
     engine["launches_by_path"] = {
         name: {"engine": engine["launches"][name],
                "paper": paper_launches[name],
-               "cluster": cluster["launches"][name]}
+               "cluster": cluster["launches"][name],
+               "network": network["launches"][name]}
         for name in ENGINE_KERNELS}
     engine["paper"] = paper
-    del session
+    engine["network"] = network
 
-    cfg = get(ARCH)
-    model = Model(cfg, device="cuda")
-    model.init(torch.Generator(device="cuda").manual_seed(0))
-    log("model", arch=cfg.name, params=sum(p.numel()
-                                           for p in model.parameters()),
-        weight_gb=round(sum(p.numel() * p.element_size()
-                            for p in model.parameters()) / 1e9, 3))
-    prefill_launches = phase_prefill(model)
-    model.cfg = cfg
-    phase_serve(model)
-    del model
-    torch.cuda.empty_cache()
-    moe = phase_moe()
-    moe_launches = moe["phi"]["flash_launches"]
-    families = phase_families()
-    vlm_launches = families["vlm"]["flash"]["flash_launches"]
-    phase_serving()
-    paths = phase_roofline()
-    flash_timing = phase_timing()
-    gemm = phase_gemm_timing()
-    norm = phase_norm_timing()
+    # The models' parameters are trainable; every phase before [train]
+    # runs them forward only
+    with torch.no_grad():
+        cfg = get(ARCH)
+        model = Model(cfg, device="cuda")
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        log("model", arch=cfg.name, params=sum(
+            p.numel() for p in model.parameters()),
+            weight_gb=round(weight_gb(model), 3))
+        prefill_launches = phase_prefill(model)
+        model.cfg = cfg
+        phase_serve(model)
+        del model
+        torch.cuda.empty_cache()
+        moe = phase_moe()
+        moe_launches = moe["phi"]["flash_launches"]
+        families = phase_families()
+        vlm_launches = families["vlm"]["flash"]["flash_launches"]
+        phase_serving()
+        paths = phase_roofline()
+        flash_timing = phase_timing()
+        gemm = phase_gemm_timing()
+        norm = phase_norm_timing()
+    phase_train(smi)
 
     def launches(name, extra=None):
         by_path = {p: n[name] for p, n in paths.items() if n[name]}

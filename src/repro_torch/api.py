@@ -45,9 +45,7 @@ Where the port differs from the reference, on purpose:
   * a cluster sweep makes one engine call per L1 geometry for all its
     ``cores`` values (K1 runs once for them: a core's single-core
     counters do not depend on the core count); its plan entries, one per
-    (geometry, cores), name that call (``engine_call``);
-  * the ``network`` axis (the bridge) is not ported yet and raises
-    ``NotImplementedError``.
+    (geometry, cores), name that call (``engine_call``).
 
 The Session owns the caches: built kernels and prepared (expanded +
 folded) traces.  Two Sessions share nothing.
@@ -228,9 +226,16 @@ class Sweep:
     ``cluster`` template (:class:`repro_torch.cluster.ClusterConfig`,
     default: no L2, one channel), run by the cluster engine; the result
     gains a ``cores`` axis after ``l1_geometry`` and the cluster counters,
-    with ``cycles`` the makespan.  ``network`` (models lowered through
-    the bridge) is the reference's further axis; the port has no bridge
-    yet, so any value raises ``NotImplementedError``.
+    with ``cycles`` the makespan.
+
+    ``network`` names models from :mod:`repro_torch.configs.registry`:
+    each is lowered through :mod:`repro_torch.bridge` (layer shapes ->
+    deduplicated ``net:*`` kernels, registered on first use) and the
+    union of lowered kernels joins the ``kernel`` axis — so one
+    ``Sweep(network=(...,))`` plans a whole model mix as a single planned
+    run.  The lowered per-layer records ride on the result's
+    ``meta["networks"]``; :func:`repro_torch.bridge.network_report`
+    folds per-kernel counters back into per-model totals.
     """
 
     kernels: tuple[str, ...] = ()
@@ -252,11 +257,17 @@ class Sweep:
 
     def __post_init__(self):
         fix = object.__setattr__
+        fix(self, "network",
+            tuple(_as_tuple(self.network)) if self.network else ())
+        kernels = list(_as_tuple(self.kernels))
+        lowered = ()
         if self.network:
-            raise NotImplementedError(
-                "the network axis is not ported yet: it needs the bridge "
-                "(ROADMAP: P6)")
-        fix(self, "kernels", tuple(_as_tuple(self.kernels)))
+            from repro_torch.bridge import lower_network
+            lowered = tuple(lower_network(m) for m in self.network)
+            for net in lowered:
+                kernels += [k for k in net.kernels if k not in kernels]
+        fix(self, "_lowered", lowered)    # companion record, not a field
+        fix(self, "kernels", tuple(kernels))
         if not self.kernels:
             raise ValueError("Sweep needs at least one kernel name")
         fix(self, "capacity", tuple(int(c) for c in _as_tuple(self.capacity)))
@@ -1040,6 +1051,9 @@ class Session:
                 cores=list(sweep.cores), l2_sets=cl0.l2_sets,
                 l2_ways=cl0.l2_ways, mem_channels=cl0.mem_channels,
                 l2_hit_cycles=cl0.l2_hit_cycles, l2_bytes=cl0.l2_bytes)
+        lowered = getattr(sweep, "_lowered", ())
+        if lowered:
+            meta["networks"] = [net.summary() for net in lowered]
         self.history.append(meta)
         return SweepResult(axes, data, meta)
 

@@ -32,8 +32,10 @@ where it ran.  The roofline's ``json_extra()`` is its record's ``extra``.
 
 The serving suites (``kv_dispersion``, ``serving_slo``) run the pool and
 the serving engine on ``--device``; their records count no engine calls.
-The reference's ``network_sweep`` suite is not ported yet: asking for it
-exits 2 with the ROADMAP item that brings it.
+``network_sweep`` lowers five registry models through the bridge
+(:mod:`repro_torch.bridge`) into ``net:*`` tile programs and runs them
+as one sweep, K1 on the card.  Every suite of the reference's
+``benchmarks/run.py`` has its port here.
 """
 
 from __future__ import annotations
@@ -63,15 +65,10 @@ _MODULES = {
     "dse": "repro_torch.benchmarks.dse",
     "kv_dispersion": "repro_torch.benchmarks.kv_dispersion",
     "serving_slo": "repro_torch.benchmarks.serving_slo",
+    "network_sweep": "repro_torch.benchmarks.network_sweep",
 }
 
 SUITES = tuple(_MODULES)
-
-# The reference's suites the port has not reached, with the ROADMAP item
-# that ports each.
-NOT_PORTED = {
-    "network_sweep": "P6 (the bridge)",
-}
 
 _CYCLE_KEYS = ("vec_cycles", "scalar_cycles", "fifo_cycles",
                "fifo_no_fetch_cycles", "cycles")
@@ -137,7 +134,7 @@ def main(argv=None, session: api.Session | None = None) -> int:
     with ``--json`` write the report.  ``session`` runs the paper suites
     (default: a new Session on ``--device`` if given, else the
     process-default Session).  Returns the exit code: 2 for a bad flag or
-    an unknown or unported suite."""
+    an unknown suite."""
     args = list(argv if argv is not None else sys.argv[1:])
     try:
         json_path = _pop_flag(args, "--json")
@@ -158,12 +155,6 @@ def main(argv=None, session: api.Session | None = None) -> int:
                   f"{max_events!r}", file=sys.stderr)
             return 2
     suites = args or list(SUITES)
-    later = [s for s in suites if s in NOT_PORTED]
-    if later:
-        for s in later:
-            print(f"error: suite {s} is not ported yet; it comes with "
-                  f"ROADMAP {NOT_PORTED[s]}", file=sys.stderr)
-        return 2
     unknown = [s for s in suites if s not in _MODULES]
     if unknown:
         print(f"error: unknown suite(s) {', '.join(unknown)}; "

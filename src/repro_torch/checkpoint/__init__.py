@@ -1,0 +1,2 @@
+from repro_torch.checkpoint.checkpointer import Checkpointer
+__all__ = ["Checkpointer"]

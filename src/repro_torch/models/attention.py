@@ -13,7 +13,9 @@ Three entry modes share weights:
 
 The kernel takes no mask but the causal one, so like the reference the
 ``flash`` branch refuses a sliding window and cross-attention; bias and
-M-RoPE are applied to q/k/v before the call.
+M-RoPE are applied to q/k/v before the call.  It has no backward: asked
+for gradients, the ``flash`` branch raises (training goes through
+``sdpa``, as the reference's goes through its plain path).
 
 MLA (``mla_attention``, ``mla_decode``) caches the compressed latent
 ``c`` (B, S, r) and the shared RoPE key ``kr`` (B, S, dr).  Like the
@@ -48,8 +50,7 @@ class Attention(nn.Module):
         nq, nkv = cfg.num_heads, cfg.num_kv_heads
 
         def w(*shape):
-            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev))
 
         self.wq, self.wk, self.wv = w(d, nq * hd), w(d, nkv * hd), \
             w(d, nkv * hd)
@@ -60,6 +61,7 @@ class Attention(nn.Module):
             self.q_norm = common.Norm(hd, "rms", dev)
             self.k_norm = common.Norm(hd, "rms", dev)
 
+    @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
             common.dense_init_(w, gen)
@@ -128,6 +130,12 @@ def attention(p, cfg, x, positions, *, causal=True, kv_input=None,
                 "the flash kernel takes no sliding window and no "
                 "cross-attention (the reference asserts the same); use "
                 "impl='sdpa'")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            raise RuntimeError(
+                "the flash kernel has no backward, so it cannot train "
+                "(nor can the reference's Pallas kernel); train with "
+                "attn_impl='sdpa', or run the forward under no_grad")
         out = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal).transpose(1, 2)
@@ -207,14 +215,14 @@ class MLA(nn.Module):
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
 
         def w(*shape):
-            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev))
 
         self.wq, self.wdkv, self.wkr = w(d, h * (dn + dr)), w(d, r), w(d, dr)
         self.wuk, self.wuv = w(r, h * dn), w(r, h * dv)
         self.wo = w(h * dv, d)
         self.kv_norm = common.Norm(r, "rms", dev)
 
+    @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         for w in (self.wq, self.wdkv, self.wkr, self.wuk, self.wuv, self.wo):
             common.dense_init_(w, gen)

@@ -32,12 +32,10 @@ class Norm(nn.Module):
         dev = resolve_device(device)
         self.kind = kind
         self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32,
-                                             device=dev),
-                                  requires_grad=False)
+                                             device=dev))
         if kind == "layernorm":
             self.bias = nn.Parameter(torch.zeros(d, dtype=torch.float32,
-                                                 device=dev),
-                                     requires_grad=False)
+                                                 device=dev))
 
 
 def rmsnorm(p, x, eps: float = 1e-6):

@@ -28,8 +28,7 @@ class MLP(nn.Module):
         dev = common.resolve_device(device)
 
         def w(*shape):
-            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev))
 
         self.kind = kind
         self.wi, self.wo = w(d, d_ff), w(d_ff, d)
@@ -38,6 +37,7 @@ class MLP(nn.Module):
         else:
             self.bi, self.bo = w(d_ff), w(d)
 
+    @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         common.dense_init_(self.wi, gen)
         if self.kind == "swiglu":
@@ -74,8 +74,7 @@ class MoE(nn.Module):
         d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
 
         def w(*shape, dt=dtype):
-            return nn.Parameter(torch.zeros(shape, dtype=dt, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.zeros(shape, dtype=dt, device=dev))
 
         self.router = w(d, e, dt=torch.float32)
         self.wi, self.wg, self.wo = w(e, d, ff), w(e, d, ff), w(e, ff, d)
@@ -83,6 +82,7 @@ class MoE(nn.Module):
             self.shared = MLP(d, ff * cfg.num_shared_experts, dtype,
                               "swiglu", dev)
 
+    @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         # As the reference's init: fan_in defaults to shape[0], which is
         # E for the (E, d, ff) weights.

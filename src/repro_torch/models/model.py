@@ -45,8 +45,18 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, mlp, rglru, ssm
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    gradients are on (non-reentrant ``torch.utils.checkpoint``), called
+    plainly otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class Block(nn.Module):
@@ -76,6 +86,7 @@ class Block(nn.Module):
         else:
             self.ffn = mlp.MoE(cfg, dtype, device)
 
+    @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         self.mixer.init_(gen)
         if hasattr(self, "cross"):
@@ -92,6 +103,7 @@ class MambaBlock(nn.Module):
         self.norm1 = common.Norm(cfg.d_model, cfg.norm_kind, device)
         self.mixer = ssm.Mamba(cfg, dtype, device)
 
+    @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         self.mixer.init_(gen)
 
@@ -110,13 +122,12 @@ class Model(nn.Module):
         self.dtype = common.DTYPES[cfg.dtype]
         dt = self.dtype
         self.embed = nn.Parameter(
-            torch.zeros(cfg.vocab_size, cfg.d_model, dtype=dt, device=dev),
-            requires_grad=False)
+            torch.zeros(cfg.vocab_size, cfg.d_model, dtype=dt, device=dev))
         self.final_norm = common.Norm(cfg.d_model, cfg.norm_kind, dev)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.zeros(cfg.d_model, cfg.vocab_size, dtype=dt,
-                            device=dev), requires_grad=False)
+                            device=dev))
         layers = range(cfg.num_layers)
         if cfg.encoder_decoder:
             self.encoder = nn.ModuleList(
@@ -209,18 +220,40 @@ class Model(nn.Module):
         enc = enc + common.sinusoid_at(frames.expand(enc.shape[:2]),
                                        cfg.d_model).to(enc.dtype)
         for blk in self.encoder:
-            enc, _ = self._block_apply(blk, enc, None, causal=False)
+            enc, _ = _remat(self._block_apply, blk, enc, None, False)
         return self._norm(self.enc_norm, enc)
+
+    def _decoder_block(self, blk, x, positions, enc):
+        """One whisper decoder block: self-attention, cross-attention onto
+        ``enc``, MLP.  Its attention is always the plain path, as in the
+        reference (it passes no impl)."""
+        cfg = self.cfg
+        x = x + attention.attention(blk.mixer, cfg, self._norm(blk.norm1, x),
+                                    positions)
+        x = x + attention.attention(blk.cross, cfg,
+                                    self._norm(blk.norm_x, x), positions,
+                                    causal=False, kv_input=enc)
+        return x + self._ffn(blk, self._norm(blk.norm2, x))[0]
+
+    def _mamba_block(self, blk, x):
+        return x + ssm.mamba(blk.mixer, self.cfg,
+                             self._norm(blk.norm1, x))[0]
 
     def _lm_head(self, x):
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return x @ w
 
     # ------------------------------------------------------------- train --
-    @torch.no_grad()
     def train_logits(self, batch):
         """Full-sequence forward. Returns (logits (B,S,V), moe_aux_loss):
-        the MoE blocks' summed aux losses, 0.0 without MoE."""
+        the MoE blocks' summed aux losses, 0.0 without MoE.
+
+        Differentiable: with gradients enabled each block of the encoder,
+        the decoder, the Mamba stack and the dense and MoE stacks is
+        recomputed in the backward pass (``torch.utils.checkpoint``, the
+        reference's per-layer ``jax.checkpoint``); the hybrid's blocks are
+        not, as in the reference.  No kernel has a backward, so a model
+        with ``attn_impl="flash"`` raises when asked for gradients."""
         cfg = self.cfg
         x = self._embed(batch)
         positions = self._positions(batch)
@@ -228,20 +261,10 @@ class Model(nn.Module):
         if cfg.encoder_decoder:
             enc = self._encode(batch)
             for blk in self.decoder:
-                # the decoder's attention is always the plain path, as in
-                # the reference (it passes no impl)
-                x = x + attention.attention(blk.mixer, cfg,
-                                            self._norm(blk.norm1, x),
-                                            positions)
-                x = x + attention.attention(blk.cross, cfg,
-                                            self._norm(blk.norm_x, x),
-                                            positions, causal=False,
-                                            kv_input=enc)
-                x = x + self._ffn(blk, self._norm(blk.norm2, x))[0]
+                x = _remat(self._decoder_block, blk, x, positions, enc)
         elif cfg.ssm:
             for blk in self.blocks:
-                x = x + ssm.mamba(blk.mixer, cfg,
-                                  self._norm(blk.norm1, x))[0]
+                x = _remat(self._mamba_block, blk, x)
         elif cfg.hybrid:
             for i, blk in enumerate(self.blocks):
                 if is_attention_layer(i):
@@ -252,12 +275,13 @@ class Model(nn.Module):
                 x = x + self._ffn(blk, self._norm(blk.norm2, x))[0]
         else:
             for blk in self.blocks:
-                x, aux = self._block_apply(blk, x, positions)
+                x, aux = _remat(self._block_apply, blk, x, positions)
                 if aux is not None:
                     aux_total = aux_total + aux
         x = self._norm(self.final_norm, x)
         return self._lm_head(x), aux_total
 
+    @torch.no_grad()
     def prefill(self, batch):
         """Full-prompt forward returning logits (the reference's prefill
         shares train_logits)."""

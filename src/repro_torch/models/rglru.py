@@ -38,8 +38,7 @@ class RGLRU(nn.Module):
         w_ = cfg.lru_width or d
 
         def w(*shape, dt=dtype, fill=0.0):
-            return nn.Parameter(torch.full(shape, fill, dtype=dt, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.full(shape, fill, dtype=dt, device=dev))
 
         self.in_x, self.in_z = w(d, w_), w(d, w_)
         self.conv_w, self.conv_b = w(CONV_WIDTH, w_), w(w_)
@@ -49,6 +48,7 @@ class RGLRU(nn.Module):
         self.lam = w(w_, dt=torch.float32, fill=3.0)
         self.out_proj = w(w_, d)
 
+    @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         for w in (self.in_x, self.in_z, self.wa, self.wx, self.out_proj):
             common.dense_init_(w, gen)

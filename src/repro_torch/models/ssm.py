@@ -42,21 +42,21 @@ class Mamba(nn.Module):
         din = cfg.ssm_expand * d
 
         def w(*shape, dt=dtype):
-            return nn.Parameter(torch.zeros(shape, dtype=dt, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.zeros(shape, dtype=dt, device=dev))
 
         self.in_x, self.in_z = w(d, din), w(d, din)
         self.conv_w, self.conv_b = w(cfg.ssm_conv, din), w(din)
         self.x_proj = w(din, dt_rank(cfg) + 2 * n)
         self.dt_proj = w(dt_rank(cfg), din)
         self.dt_bias = w(din, dt=torch.float32)
-        self.a_log = w(din, n, dt=torch.float32)
-        self.a_log.copy_(torch.log(torch.arange(
-            1, n + 1, dtype=torch.float32, device=dev)).expand(din, n))
-        self.d_skip = w(din, dt=torch.float32)
-        self.d_skip.fill_(1.0)
+        self.a_log = nn.Parameter(torch.log(torch.arange(
+            1, n + 1, dtype=torch.float32, device=dev)).expand(din, n)
+            .clone())
+        self.d_skip = nn.Parameter(torch.ones(din, dtype=torch.float32,
+                                              device=dev))
         self.out_proj = w(din, d)
 
+    @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         for w in (self.in_x, self.in_z, self.x_proj, self.dt_proj,
                   self.out_proj):

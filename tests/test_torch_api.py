@@ -11,10 +11,10 @@ with OPT and ``alloc_no_fetch``, two L1 geometries with M = 4 memory
 latencies, folding with a refine (and an uncertified fold kept flagged
 above the refine limit), folding off, and ``max_events`` truncation.  The
 port's deliberate differences are pinned too: its plan has no shape
-buckets, its ``meta`` has ``dispatches`` (one engine call per geometry
-plus one per refined program) and ``launches`` but no ``compiles``, and
-the reference's ``network`` axis raises until its slice lands (the
-``cores`` axis is held in ``test_torch_cluster.py``).
+buckets, and its ``meta`` has ``dispatches`` (one engine call per
+geometry plus one per refined program) and ``launches`` but no
+``compiles`` (the ``cores`` axis is held in ``test_torch_cluster.py``,
+the ``network`` axis in ``test_torch_bridge.py``).
 """
 
 import dataclasses
@@ -180,8 +180,28 @@ def test_unknown_kernel_raises_with_menu():
 
 
 def test_unported_axes_raise():
-    with pytest.raises(NotImplementedError, match="P6"):
-        tapi.Sweep(kernels=["gemv"], network=("phi3-mini-3.8b",))
+    """No axis of the reference's Sweep is left unported: the network
+    axis lowers its models into net:* kernels on the kernel axis and
+    runs (a truncated budget here), with the lowered summaries in
+    ``meta["networks"]``; an unknown model raises as the registry does."""
+    from repro_torch import rvv as trvv
+    before = set(trvv.BENCHMARKS)
+    try:
+        sweep = tapi.Sweep(kernels=["gemv"], network=("phi3-mini-3.8b",),
+                           capacity=(3, 8), max_events=200)
+        net = sweep._lowered[0]
+        assert sweep.network == ("phi3-mini-3.8b",)
+        assert sweep.kernels == ("gemv",) + net.kernels
+        assert all(k.startswith("net:") for k in net.kernels)
+        res = tapi.Session(device="cpu").run(sweep)
+        assert res.meta["networks"] == [net.summary()]
+        assert res.meta["dispatches"] == 1 and "compiles" not in res.meta
+        assert res.data["cycles"].shape[:2] == (len(sweep.kernels), 2)
+        with pytest.raises(KeyError):
+            tapi.Sweep(network=("no-such-model",))
+    finally:
+        for name in set(trvv.BENCHMARKS) - before:
+            del trvv.BENCHMARKS[name]
     assert tapi.Sweep(kernels=["gemv"], cores=1).cores == (1,)
 
 

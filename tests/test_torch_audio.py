@@ -32,6 +32,15 @@ from repro.serve import traffic as jtraffic  # noqa: E402
 from repro_torch.models import Model, attention, common, convert  # noqa: E402
 from repro_torch.serve import ServeEngine, traffic  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """The model's parameters are trainable; these tests hold forward
+    values, so they run without autograd (as prefill and decode do)."""
+    with torch.no_grad():
+        yield
+
+
 # f32 logits and caches: the same arithmetic in another order, as
 # tests/test_torch_model.py
 TOL_F32 = 1e-4

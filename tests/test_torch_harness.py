@@ -6,8 +6,9 @@ accounting (``dispatches``, ``launches``, ``device``; no ``compiles``),
 its ``kernels`` block equal to the reference harness's on the same
 arguments (dropout and gemv at ``max_events`` = 2,000; the fixed roster of
 policy_headroom at 1,000), the roofline's payload merged in, and exits 2
-for an unknown or unported suite; without a card and without ``--device
-cpu`` it raises.  Both examples run on the CPU and print the paper's
+for an unknown suite; every suite of the reference's harness runs,
+network_sweep included; without a card and without ``--device cpu`` it
+raises.  Both examples run on the CPU and print the paper's
 verdicts.
 """
 
@@ -106,10 +107,25 @@ def test_run_merges_the_roofline_record(tmp_path):
     assert got["suites"]["vmem_dispersion"]["rows"] == 6
 
 
-@pytest.mark.parametrize("suite", sorted(trun.NOT_PORTED))
-def test_run_refuses_unported_suites(suite, capsys):
-    assert trun.main(["--device", "cpu", suite]) == 2
-    assert trun.NOT_PORTED[suite].split()[0] in capsys.readouterr().err
+@pytest.mark.parametrize("suite", ["network_sweep"])
+def test_run_refuses_unported_suites(suite, tmp_path):
+    """The last suite the port lacked runs: network_sweep exits 0 with
+    its whole grid (50 rows, 350 points) at a truncated budget, its
+    record counting engine calls and launches, not compiles."""
+    path = tmp_path / "net.json"
+    from repro_torch import rvv as trvv
+    before = set(trvv.BENCHMARKS)
+    try:
+        assert trun.main(["--device", "cpu", "--max-events", "100",
+                          "--json", str(path), suite]) == 0
+    finally:
+        for name in set(trvv.BENCHMARKS) - before:
+            del trvv.BENCHMARKS[name]
+    rec = json.loads(path.read_text())["suites"][suite]
+    assert rec["rows"] == 50 and rec["dispatches"] == 2
+    assert rec["extra"]["points"] == 350
+    assert len(rec["extra"]["networks"]) == 5
+    assert "compiles" not in rec and "compiles" not in rec["extra"]
 
 
 def test_run_refuses_bad_arguments(capsys):
@@ -117,7 +133,7 @@ def test_run_refuses_bad_arguments(capsys):
     assert "unknown suite(s) nope" in capsys.readouterr().err
     assert trun.main(["--device", "cpu", "--max-events", "0", "fig2"]) == 2
     assert trun.main(["--device", "cpu", "fig2", "--json"]) == 2
-    assert set(trun.SUITES) | set(trun.NOT_PORTED) == set(
+    assert set(trun.SUITES) == set(
         importlib.import_module("benchmarks.run").SUITES)
 
 

@@ -40,7 +40,15 @@ def test_port_and_chip_smoke_import_without_jax():
               "repro_torch.benchmarks.serving_slo",
               "repro_torch.configs.deepseek_v2_lite_16b",
               "repro_torch.models.ssm", "repro_torch.models.rglru",
-              "repro_torch.models.model", "repro_torch.models.convert"):
+              "repro_torch.models.model", "repro_torch.models.convert",
+              "repro_torch.bridge", "repro_torch.bridge.shapes",
+              "repro_torch.bridge.lower", "repro_torch.bridge.network",
+              "repro_torch.benchmarks.network_sweep",
+              "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+              "repro_torch.checkpoint.checkpointer",
+              "repro_torch.train.train_step", "repro_torch.train.trainer",
+              "repro_torch.launch.train", "repro_torch.examples.train_lm",
+              "repro_torch.examples.serve_lm"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -50,6 +58,9 @@ def test_port_and_chip_smoke_import_without_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "from repro_torch import rvv\n"
+        "net = [n for n in rvv.BENCHMARKS if n.startswith('net:')]\n"
+        "assert not net, net\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)

@@ -27,6 +27,15 @@ from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.models import Model, attention, convert  # noqa: E402
 from repro_torch.serve import ServeEngine, traffic  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """The model's parameters are trainable; these tests hold forward
+    values, so they run without autograd (as prefill and decode do)."""
+    with torch.no_grad():
+        yield
+
+
 # mla_attention / mla_decode in f32: the same arithmetic in another order
 TOL_MLA = 1e-4
 # Reduced-model logits, as tests/test_torch_model.py

@@ -23,6 +23,15 @@ from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.models import (Model, common, convert, mlp,  # noqa: E402
                                 rglru, ssm)
 
+
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """The model's parameters are trainable; these tests hold forward
+    values, so they run without autograd (as prefill and decode do)."""
+    with torch.no_grad():
+        yield
+
+
 # f32 logits are O(1-10); both sides compute the same f32 arithmetic in
 # another order.  bf16 logits here stay below 8, where one bf16 ulp is
 # 2^-5; the frameworks round activations at other places (e.g. silu in

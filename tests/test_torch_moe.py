@@ -25,6 +25,15 @@ from repro.models import mlp as jmlp  # noqa: E402
 from repro_torch.models import (Model, attention, common, convert,  # noqa: E402
                                 mlp)
 
+
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """The model's parameters are trainable; these tests hold forward
+    values, so they run without autograd (as prefill and decode do)."""
+    with torch.no_grad():
+        yield
+
+
 # moe() in f32: the same arithmetic in another order (the combine sums k
 # f32 terms; the expert products run through other GEMMs).
 TOL_MOE = 1e-5
