@@ -172,7 +172,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
                and restored into a fresh Trainer, held leaf by leaf,
                which takes one more step; then a reduced f32 copy's step
                on the card against the same step on the CPU (loss and
-               masters within 1e-4).
+               masters within 1e-4);
+  9. shard     sharding (P7b) on a 1 x 1 ("data", "model") DeviceMesh
+               over NCCL: full-width phi3-mini's prefill 4 x 512 through
+               K5 on each rank's local shard (local_map, one launch per
+               layer) held to the unsharded prefill, 8 greedy decode
+               steps with the same tokens, one train step at full width
+               and 8 of 32 layers with its loss and updated masters held
+               to the unsharded step's; launch.dryrun's plan of that
+               train step on the same mesh (meta tensors, a fake process
+               group, in a process of its own) counting the real step's
+               FlopCounterMode FLOPs exactly, its bytes per device beside
+               max_memory_allocated and its FLOPs beside
+               analytic.model_flops; then the production plan on the
+               16 x 16 mesh for the 10 archs at train_4k and decode_32k,
+               one [dryrun] line per cell.  Writes chiprun_out/shard.json.
 
 The earlier phases run their models under torch.no_grad (the models'
 parameters are trainable).  The last lines are the kernels' JSON record, the card's name and power
@@ -191,7 +205,9 @@ import re
 import shutil
 import statistics
 import subprocess
+import os
 import sys
+import textwrap
 import time
 from pathlib import Path
 
@@ -2984,6 +3000,313 @@ def phase_train(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- shard --
+
+# [shard] (P7b): a 1 x 1 ("data", "model") mesh over NCCL on the card
+SHARD_DECODE_STEPS = 8
+SHARD_TRAIN_LAYERS = 8                 # of phi3-mini's 32, at full width
+SHARD_TRAIN_BATCH, SHARD_TRAIN_LEN = 4, 512
+SHARD_TOL_LOSS = 1e-5                  # relative, the reference's test
+SHARD_TOL_MASTER = 1e-5
+# The production plan in the phase: the 10 archs at these shapes on the
+# 16 x 16 mesh (the whole sweep takes several minutes of host time; it
+# runs as its own command), on the host while the card runs the rest
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_JOBS = 3                        # per shape: 6 of the host's cores
+DRYRUN_TIMEOUT_S = 400
+
+
+def _start_group(device: str, tmp: Path) -> None:
+    """A one-rank process group: NCCL on the card, gloo on the CPU."""
+    import torch.distributed as dist
+    tmp.mkdir(parents=True, exist_ok=True)
+    store = tmp / "store"
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _zero_flash(device: str) -> None:
+    if device == "cuda":
+        fa.flash_attention_cuda.launches = 0
+    else:
+        fa.flash_attention_plain.calls = 0
+
+
+def _flash_count(device: str) -> int:
+    return (fa.flash_attention_cuda.launches if device == "cuda"
+            else fa.flash_attention_plain.calls)
+
+
+def _greedy(model, first, steps: int, mesh=None):
+    """``steps`` greedy decode steps from the tokens ``first`` (B, 1),
+    with the cache and batch placed on ``mesh`` when one is given."""
+    from repro_torch.launch import sharding as shr
+    from repro_torch.models import common
+    b = first.shape[0]
+    cache = model.init_cache(b, steps)
+    if mesh is not None:
+        cache = shr.place_tree(cache, shr.cache_shardings(cache, mesh))
+    tok, out = first, []
+    with common.mesh_context(mesh):
+        for t in range(steps):
+            batch = {"tokens": tok, "positions": torch.full(
+                (b, 1), t, dtype=torch.long, device=first.device)}
+            if mesh is not None:
+                batch = shr.place_tree(batch, shr.batch_shardings(
+                    batch, mesh, "decode"))
+            logits, cache = model.decode_step(cache, batch)
+            tok = _whole(logits)[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+    return torch.cat(out, 1)
+
+
+def shard_serve(mesh, device: str = "cuda", cfg=None) -> dict:
+    """Full phi3-mini through flash: the prefill and SHARD_DECODE_STEPS
+    greedy decode steps unsharded, then the same model's parameters
+    placed on ``mesh`` and both again; the mesh prefill's K5 calls are
+    counted (one per layer, through local_map)."""
+    from repro_torch.launch import sharding as shr
+    from repro_torch.models import common
+    cfg = dataclasses.replace(cfg or get(ARCH), attn_impl="flash")
+    with torch.no_grad():
+        model = Model(cfg, device=device)
+        model.init(torch.Generator(device=device).manual_seed(0))
+        batch = _prompt_batch(cfg, PREFILL_BATCH, PREFILL_LEN, device)
+        want = model.prefill(batch)
+        want_tokens = _greedy(model, batch["tokens"][:, :1],
+                              SHARD_DECODE_STEPS)
+        shr.distribute_model(model, shr.params_shardings(
+            dict(model.named_parameters()), mesh, cfg))
+        placed = shr.place_tree(batch, shr.batch_shardings(batch, mesh,
+                                                           "prefill"))
+        _zero_flash(device)
+        with common.mesh_context(mesh):
+            got = _whole(model.prefill(placed))
+        launches = _flash_count(device)
+        got_tokens = _greedy(model, batch["tokens"][:, :1],
+                             SHARD_DECODE_STEPS, mesh)
+    max_abs = float((got.float() - want.float()).abs().max())
+    out = dict(launches=launches, layers=cfg.num_layers,
+               prefill_equal=bool(torch.equal(got, want)),
+               prefill_max_abs=max_abs,
+               tokens_equal=bool(torch.equal(got_tokens, want_tokens)),
+               tokens=got_tokens.tolist())
+    del model, want, got
+    return out
+
+
+def _train_batch(cfg, device):
+    batch = _prompt_batch(cfg, SHARD_TRAIN_BATCH, SHARD_TRAIN_LEN, device,
+                          seed=5)
+    batch["targets"] = torch.roll(batch["tokens"], -1, dims=1)
+    return batch
+
+
+def shard_train(mesh, device: str = "cuda", cfg=None) -> dict:
+    """One train step of phi3-mini at full width and SHARD_TRAIN_LAYERS
+    layers, unsharded, then on ``mesh`` from the same weights under
+    FlopCounterMode: the losses, the updated f32 masters, the sharded
+    step's FLOPs and its peak memory (the state and the step alone)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import sharding as shr
+    from repro_torch.models import common
+    from repro_torch.train.train_step import make_train_step
+    cfg = cfg or dataclasses.replace(get(ARCH),
+                                     num_layers=SHARD_TRAIN_LAYERS)
+    model = Model(cfg, device=device)
+    model.init(torch.Generator(device=device).manual_seed(1))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = _train_batch(cfg, device)
+    step = make_train_step(cfg, OptConfig(), 1)
+    opt = tadamw.init_state(dict(model.named_parameters()))
+    _, opt, _, met = step(model, opt, None, batch)
+    want_loss = float(met["loss"])
+    want_masters = {k: v.cpu() for k, v in opt["master"].items()}
+    del opt, met
+    with torch.no_grad():
+        model.load_state_dict(init)
+    del init
+    shr.distribute_model(model, shr.params_shardings(
+        dict(model.named_parameters()), mesh, cfg))
+    placed = shr.place_tree(batch, shr.batch_shardings(batch, mesh,
+                                                       "train"))
+    _free()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with common.mesh_context(mesh):
+        opt = tadamw.init_state(dict(model.named_parameters()))
+        with FlopCounterMode(display=False) as counter:
+            _, opt, _, met = step(model, opt, None, placed)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    loss = float(_whole(met["loss"]))
+    master_err = max(float((_whole(v).cpu() - want_masters[k]).abs().max())
+                     for k, v in opt["master"].items())
+    out = dict(loss=loss, want_loss=want_loss,
+               loss_rel_err=abs(loss - want_loss) / abs(want_loss),
+               master_max_abs_err=master_err,
+               flops=counter.get_total_flops(),
+               max_memory_allocated=peak)
+    del model, opt, met, placed
+    _free()
+    return out
+
+
+def plan_cell(arch_cfg, shape, mesh_shape, microbatches=1) -> dict:
+    """launch.dryrun's plan of one cell, in a process of its own (the fake
+    process group is process-wide); ``arch_cfg`` is registered for it."""
+    code = textwrap.dedent(f"""
+        import dataclasses, json
+        import repro_torch.configs.registry as reg
+        from repro_torch.configs import ArchConfig
+        from repro_torch.configs.registry import ShapeConfig
+        from repro_torch.launch import dryrun
+        cfg = ArchConfig(**json.loads({json.dumps(json.dumps(
+            dataclasses.asdict(arch_cfg)))}))
+        reg.ARCHS[cfg.name] = cfg
+        shape = ShapeConfig(**json.loads({json.dumps(json.dumps(
+            dataclasses.asdict(shape)))}))
+        print(json.dumps(dryrun.run_cell(
+            cfg.name, shape, mesh_shape={tuple(mesh_shape)},
+            microbatches={microbatches}, verbose=False)))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"plan of {arch_cfg.name}: "
+          f"{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def start_production_plan(out_dir: Path) -> list:
+    """launch.dryrun over the 10 archs at DRYRUN_SHAPES on the 16 x 16
+    mesh, started in the background (host CPU only): one process per
+    shape, DRYRUN_JOBS cells at once in each."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for shape in DRYRUN_SHAPES:
+        path = out_dir / f"dryrun_phase_{shape}.json"
+        procs.append((shape, path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "single", "--jobs", str(DRYRUN_JOBS), "--shape",
+             shape, "--out", str(path)], cwd=ROOT, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)))
+    return procs
+
+
+def stop_production_plan(procs) -> None:
+    """Kill what is left of the plan's processes and their workers."""
+    import signal
+    for _, _, proc in procs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def finish_production_plan(procs, t0: float) -> list:
+    """Wait for the plan's processes: one [dryrun] line per cell."""
+    from repro_torch.configs import ARCHS
+    cells = []
+    for shape, path, proc in procs:
+        _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        check(proc.returncode == 0, f"dryrun --shape {shape}: "
+              f"{err[-2000:]}")
+        cells += json.loads(path.read_text())
+    for c in cells:
+        coll = c.get("collectives", {}).get("collective_bytes")
+        log("dryrun", cell=f"{c['arch']}/{c['shape']}", status=c["status"],
+            flops=c.get("flops"), coll_bytes=coll,
+            bytes_per_device=c.get("bytes_per_device"),
+            fits_80g=c.get("fits_80g"),
+            plan_s=round(c.get("lower_s", 0) + c.get("compile_s", 0), 1))
+    bad = [(c["arch"], c["shape"]) for c in cells if c["status"] != "ok"]
+    check(len(cells) == len(ARCHS) * len(DRYRUN_SHAPES) and not bad,
+          f"production plan: {len(cells)} cells, not ok: {bad}")
+    log("dryrun", cells=len(cells), mesh="16x16",
+        seconds=round(time.perf_counter() - t0, 1))
+    return cells
+
+
+def phase_shard(card: str) -> dict:
+    """[shard] (P7b) on the card: the 1 x 1 mesh's prefill (K5 through
+    local_map), decode and train step held to their unsharded runs; the
+    plan of that train step held to its real FLOPs and memory; the
+    production plan's cells.  Writes chiprun_out/shard.json."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.launch import analytic
+    from repro_torch.launch.mesh import make_debug_mesh
+    t0 = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    procs = start_production_plan(out_dir)
+    try:
+        _start_group("cuda", out_dir / "shard_group")
+        try:
+            mesh = make_debug_mesh(1, 1)
+            serve = shard_serve(mesh)
+            log("shard", check="prefill_flash_local_map", mesh="1x1",
+                equal=serve["prefill_equal"], max_abs=serve["prefill_max_abs"],
+                k5_launches=serve["launches"], want_launches=serve["layers"])
+            log("shard", check="decode", steps=SHARD_DECODE_STEPS,
+                equal=serve["tokens_equal"])
+            _free()
+            train = shard_train(mesh)
+            log("shard", check="train_step", layers=SHARD_TRAIN_LAYERS,
+                equal=train["loss"] == train["want_loss"],
+                max_abs=train["master_max_abs_err"],
+                loss=train["loss"], want_loss=train["want_loss"],
+                loss_rel_err=train["loss_rel_err"])
+        finally:
+            dist.destroy_process_group()
+        check(serve["launches"] == serve["layers"],
+              f"shard: {serve['launches']} K5 launches under the mesh, want "
+              f"one per layer ({serve['layers']})")
+        # one card: every op is the unsharded one on the whole tensor
+        check(serve["prefill_max_abs"] <= 1e-2 and serve["tokens_equal"],
+              f"shard: prefill off by {serve['prefill_max_abs']}, tokens "
+              f"equal {serve['tokens_equal']}")
+        check(train["loss_rel_err"] <= SHARD_TOL_LOSS
+              and train["master_max_abs_err"] <= SHARD_TOL_MASTER,
+              f"shard: train step {train}")
+
+        cfg8 = dataclasses.replace(get(ARCH), num_layers=SHARD_TRAIN_LAYERS,
+                                   name=f"{ARCH}-{SHARD_TRAIN_LAYERS}l")
+        shape = ShapeConfig("shard_train", SHARD_TRAIN_LEN, SHARD_TRAIN_BATCH,
+                            "train")
+        plan = plan_cell(cfg8, shape, (1, 1))
+        model_flops = analytic.model_flops(cfg8, shape)["model_flops"]
+        log("shard", check="plan_vs_real", plan_flops=plan["flops"],
+            real_flops=train["flops"], equal=plan["flops"] == train["flops"],
+            analytic_model_flops=model_flops,
+            plan_over_analytic=plan["flops"] / model_flops,
+            plan_bytes_per_device=plan["bytes_per_device"],
+            max_memory_allocated=train["max_memory_allocated"],
+            plan_over_real_memory=plan["bytes_per_device"]
+            / train["max_memory_allocated"], plan_s=plan["compile_s"],
+            card=card)
+        check(plan["status"] == "ok" and plan["flops"] == train["flops"],
+              f"shard: the plan counts {plan['flops']} FLOPs, the real step "
+              f"{train['flops']}")
+        cells = finish_production_plan(procs, t0)
+    finally:
+        stop_production_plan(procs)
+    out = dict(serve=serve, train=train, plan=plan, cells=cells,
+               card=card, seconds=round(time.perf_counter() - t0, 2))
+    log("shard", seconds=out["seconds"])
+    (out_dir / "shard.json").write_text(json.dumps(out, indent=1))
+    return out
+
+
 # ---------------------------------------------------------------- roofline --
 
 # The reference's measured grid (benchmarks/roofline.py): 2 GEMM cases x
@@ -3549,6 +3872,8 @@ def main() -> int:
         gemm = phase_gemm_timing()
         norm = phase_norm_timing()
     phase_train(smi)
+    shard = phase_shard(smi)
+    shard_launches = shard["serve"]["launches"]
 
     def launches(name, extra=None):
         by_path = {p: n[name] for p, n in paths.items() if n[name]}
@@ -3559,7 +3884,8 @@ def main() -> int:
     flash_routes = {route: sum(r[route] for r in route_launches[
         "flash_attention"].values()) for route in ("tc", "fma")}
     # all on the tensor cores
-    flash_routes["tc"] += prefill_launches + moe_launches + vlm_launches
+    flash_routes["tc"] += (prefill_launches + moe_launches + vlm_launches
+                           + shard_launches)
 
     def gemm_entry(name, replaces):
         g = dict(gemm[name])
@@ -3587,8 +3913,12 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:118",
              **launches("flash_attention", {"prefill": prefill_launches,
                                             "prefill_moe": moe_launches,
-                                            "prefill_vlm": vlm_launches}),
+                                            "prefill_vlm": vlm_launches,
+                                            "prefill_shard": shard_launches}),
              launches_by_route=flash_routes,
+             # under a DeviceMesh K5 runs on each rank's local shard
+             mesh_route=dict(via="local_map", mesh="1x1",
+                             launches=shard_launches),
              roofline_launches_by_precision_and_route=route_launches[
                  "flash_attention"],
              max_abs_err=flash_err, shape=[PREFILL_BATCH, 32, PREFILL_LEN,

@@ -26,9 +26,14 @@ where the reference records ``interpret``; ``perf_stats()`` reports
 kernel launches and plain-twin calls counted in the wrappers, and the
 GEMM and attention launches of each precision by route
 (``route_launches``: tensor cores or CUDA-core FMAs, see
-``dispersed_gemm`` and ``flash_attention``).  The
-reference's legacy dry-run table needs the launch layer and is not
-ported yet.
+``dispersed_gemm`` and ``flash_attention``).
+
+The reference's legacy dry-run table is here too (``load_cells``,
+``run``): the roofline terms of each planned cell of
+``launch.dryrun``'s sweep, read from ``results/dryrun_torch/*_{mesh}.json``
+with the reference's row schema, ``fits_16g`` replaced by ``fits_80g``
+(an H100's 80 GB) and the terms at the H100's peaks
+(``launch.analytic``).
 
     python -m repro_torch.benchmarks.roofline [--device cpu] [--smoke]
 """
@@ -36,15 +41,24 @@ ported yet.
 from __future__ import annotations
 
 import argparse
+import glob
+import json
+import os
 import time
+import warnings
 
 import torch
 
 from repro_torch import api
 from repro_torch.benchmarks import common
+from repro_torch.configs import SHAPES, get
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispersed_gemm, flash_attention, traffic
 from repro_torch.kernels.ref import cast_like
+from repro_torch.launch import analytic
+
+RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                       "results", "dryrun_torch")
 
 # (m, k, n) GEMM cases and (b, h, s, d) attention cases, as in the
 # reference.
@@ -356,6 +370,67 @@ _HEADER = ["name", "us_per_call", "working_set", "precision",
            "counted_bytes", "model_bytes", "vmem_acc_bytes"]
 
 
+# ---------------------------------------------------------------------------
+# Legacy dry-run table (results/dryrun_torch/*.json from launch.dryrun).
+# ---------------------------------------------------------------------------
+
+
+def load_cells(mesh: str = "single") -> list[dict]:
+    """Load the dry-run sweep cells; unreadable/corrupt files are counted
+    and reported (a warning naming each file) instead of silently
+    dropped."""
+    cells, skipped = [], []
+    for f in sorted(glob.glob(os.path.join(RESULTS, f"*_{mesh}.json"))):
+        try:
+            with open(f) as fh:
+                cells.extend(json.load(fh))
+        except (OSError, ValueError) as e:
+            skipped.append(f"{os.path.basename(f)} ({e})")
+    if skipped:
+        warnings.warn(
+            f"load_cells: skipped {len(skipped)} unreadable dry-run cell "
+            f"file(s): {'; '.join(skipped)}", stacklevel=2)
+    return cells
+
+
+def run(mesh: str = "single") -> list[dict]:
+    """The dry-run-cells roofline table (the reference's schema, with
+    ``fits_80g``).  Warns when the sweep has never been written, instead
+    of silently emitting an empty table."""
+    if not os.path.isdir(RESULTS):
+        warnings.warn(
+            f"no dry-run sweep at {os.path.normpath(RESULTS)}; the "
+            f"dry-run roofline table is empty (the *measured* roofline "
+            f"via main()/run_measured() does not need it)", stacklevel=2)
+        return []
+    rows = []
+    for cell in load_cells(mesh):
+        name = f"{cell['arch']}/{cell['shape']}"
+        if cell["status"] == "skip":
+            rows.append(dict(name=name, us_per_call=0.0, status="skip"))
+            continue
+        if cell["status"] != "ok":
+            rows.append(dict(name=name, us_per_call=0.0, status="error"))
+            continue
+        cfg = get(cell["arch"])
+        shape = SHAPES[cell["shape"]]
+        t = analytic.roofline_terms(cell, cfg, shape)
+        rows.append(dict(
+            name=name, us_per_call=0.0, status="ok",
+            t_compute_ms=round(t["t_compute"] * 1e3, 3),
+            t_memory_ms=round(t["t_memory"] * 1e3, 3),
+            t_mem_ub_ms=round(t["t_memory_opbytes_ub"] * 1e3, 3),
+            t_collective_ms=round(t["t_collective"] * 1e3, 3),
+            bottleneck=t["bottleneck"],
+            roofline_frac=round(t["roofline_fraction"], 3),
+            useful_flop_ratio=round(t["useful_flop_ratio"], 3),
+            mem_gb_per_dev=round(cell.get("bytes_per_device", 0) / 1e9, 2),
+            fits_80g=cell.get("fits_80g", ""),
+            compile_s=round(cell.get("compile_s", 0), 1),
+        ))
+    return rows
+
+
 def main(max_events: int | None = None, device="cuda") -> list[dict]:
     smoke = max_events is not None and max_events <= 5000
     _, _, rows = run_measured(smoke=smoke, device=device)
@@ -364,6 +439,13 @@ def main(max_events: int | None = None, device="cuda") -> list[dict]:
         print(f"# equal-VMEM {study['case']}: measured winner "
               f"{study['measured_winner']}, model winner "
               f"{study['model_winner']}")
+    if os.path.isdir(RESULTS):
+        print("# legacy dry-run table (results/dryrun_torch)")
+        dr = run("single")
+        common.emit(dr, [
+            "name", "us_per_call", "status", "t_compute_ms", "t_memory_ms",
+            "t_mem_ub_ms", "t_collective_ms", "bottleneck", "roofline_frac",
+            "useful_flop_ratio", "mem_gb_per_dev", "fits_80g", "compile_s"])
     return rows
 
 

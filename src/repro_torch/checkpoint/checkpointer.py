@@ -17,6 +17,13 @@ returns, keeping bf16 leaves in bf16 there and widening each to f32 only
 as the writer reaches it; ``restore`` loads each leaf into the tensor of
 ``like`` at the same key, in place, so neither needs a second copy of the
 state on the device.
+
+Sharded state (DTensor leaves): ``save`` gathers each leaf whole
+(``full_tensor``, a collective every rank joins) and rank 0 of the
+process group writes; ``restore`` places each leaf as the DTensor of
+``like`` is placed, or, given the reference's ``shard_fn(key, tensor)``,
+returns what it makes of each leaf (the elastic restore across meshes:
+a checkpoint saved under one mesh re-sharded for another).
 """
 
 from __future__ import annotations
@@ -39,6 +46,23 @@ def _flatten(tree, prefix=""):
             yield from _flatten(v, key + "/")
         else:
             yield key, v
+
+
+def _unflatten(like, flat: dict, prefix=""):
+    """``like``'s nested structure with the leaves of ``flat``."""
+    return {k: (_unflatten(v, flat, f"{prefix}{k}/") if isinstance(v, dict)
+                else flat[f"{prefix}{k}"]) for k, v in like.items()}
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (a collective); a tensor as is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
@@ -72,8 +96,10 @@ class Checkpointer:
         # Snapshot to host memory now (the train loop updates the tensors
         # in place); the disk write runs on the thread.
         with torch.no_grad():
-            host = {k: v.detach().to("cpu", copy=True)
+            host = {k: _whole(v.detach()).to("cpu", copy=True)
                     for k, v in _flatten(state)}
+        if not _writer():
+            return
 
         def _write():
             try:
@@ -127,19 +153,36 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: dict, step: int | None = None
-                ) -> tuple[int, dict]:
+    def restore(self, like: dict, step: int | None = None,
+                shard_fn=None) -> tuple[int, dict]:
         """Load step ``step`` (default: the newest) into ``like``: each
         leaf is copied, in place, into the tensor of ``like`` at its key,
-        cast to that tensor's dtype on its device.  Returns (step,
-        like)."""
+        cast to that tensor's dtype on its device (a DTensor leaf gets its
+        own shard).  Returns (step, like).
+
+        With ``shard_fn(key, tensor)`` nothing is written in place: each
+        leaf, a CPU tensor cast to ``like``'s dtype, goes through
+        ``shard_fn`` (which re-shards it for the current mesh), and the
+        result is returned in ``like``'s structure."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:08d}")
+        out = {}
         with np.load(os.path.join(path, "shard_0.npz")) as data, \
                 torch.no_grad():
             for key, leaf in _flatten(like):
-                leaf.copy_(torch.from_numpy(data[key]))
-        return step, like
+                arr = torch.from_numpy(data[key])
+                if shard_fn is not None:
+                    out[key] = shard_fn(key, arr.to(leaf.dtype))
+                elif hasattr(leaf, "placements"):
+                    from torch.distributed.tensor import distribute_tensor
+                    leaf.copy_(distribute_tensor(
+                        arr.to(leaf.dtype), leaf.device_mesh,
+                        leaf.placements, src_data_rank=None))
+                else:
+                    leaf.copy_(arr)
+        if shard_fn is None:
+            return step, like
+        return step, _unflatten(like, out)

@@ -274,6 +274,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
 
 
 def _attend(q, k, v, *, causal: bool, scale: float | None):
+    if any(type(t) is not torch.Tensor and _is_dtensor(t)
+           for t in (q, k, v)):
+        # a DTensor's data_ptr is not its shard's storage
+        raise TypeError("flash_attention takes local tensors, not "
+                        "DTensors: run it on each rank's shard "
+                        "(models.attention does, through local_map)")
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if q.device.type == "cpu":
@@ -282,6 +288,11 @@ def _attend(q, k, v, *, causal: bool, scale: float | None):
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
     raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,

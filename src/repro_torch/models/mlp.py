@@ -49,12 +49,16 @@ def mlp(p, x, kind: str = "swiglu"):
     if kind == "swiglu":
         h = F.silu(x @ p.wg) * (x @ p.wi)
     else:
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p.wi + p.bi, approximate="tanh")
+        # jax.nn.gelu defaults to the tanh approximation.  Under a mesh
+        # each product is reduced before its bias is added, as in
+        # ssm._step_projections (a split bias cannot join a partial sum).
+        h = F.gelu(common.shard(x @ p.wi, common.BATCH, None, common.MODEL)
+                   + p.bi, approximate="tanh")
+    h = common.shard(h, common.BATCH, None, common.MODEL)
     out = h @ p.wo
     if kind != "swiglu":
-        out = out + p.bo
-    return out
+        out = common.shard(out, common.BATCH, None, None) + p.bo
+    return common.shard(out, common.BATCH, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -117,13 +121,13 @@ def route(p, cfg, x):
     return probs, gate, ids
 
 
-def moe(p, cfg, x, capacity_factor: float = 1.25):
-    """x: (B, S, d); routing groups are batch rows.  Returns (out, aux):
-    out in ``x.dtype``, aux the Switch-style load-balancing loss."""
+def _dispatch(p, cfg, x, cap: int, n_split: int = 1):
+    """Route x (B, S, d) and scatter its tokens into (B, E, C, d) expert
+    buffers.  Returns (buf, gate, ids, rank, keep, density,
+    router_prob): the last two are the batch means of the aux loss,
+    divided by ``n_split`` (the batch's shards elsewhere add theirs)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.moe_top_k
-    cap = max(int(capacity_factor * s * k / e), 1)
-
     probs, gate, ids = route(p, cfg, x)
     rank = _dispatch_ranks(ids, e)                        # (B, S, k)
     keep = rank < cap
@@ -135,17 +139,67 @@ def moe(p, cfg, x, capacity_factor: float = 1.25):
                       torch.zeros((), dtype=x.dtype, device=x.device))
     buf = x.new_zeros(b, e, cap, d)
     buf.index_put_((rows, ids, slot), tok, accumulate=True)
+    density = F.one_hot(ids, e).float().mean((0, 1, 2))
+    router_prob = probs.mean((0, 1))
+    if n_split > 1:
+        density, router_prob = density / n_split, router_prob / n_split
+    return buf, gate, ids, rank, keep, density, router_prob
+
+
+def _combine(out_buf, gate, ids, rank, keep, cap: int, dtype):
+    """Each token's kept experts' outputs, weighted by their gates."""
+    b, s, k = ids.shape
+    rows = torch.arange(b, device=ids.device)[:, None, None].expand(b, s, k)
+    w = torch.where(keep, gate, 0.0)                      # (B, S, k)
+    gathered = out_buf[rows, ids, rank.clamp(max=cap - 1)]  # (B, S, k, d)
+    return (w[..., None] * gathered.float()).sum(2).to(dtype)
+
+
+def moe(p, cfg, x, capacity_factor: float = 1.25):
+    """x: (B, S, d); routing groups are batch rows.  Returns (out, aux):
+    out in ``x.dtype``, aux the Switch-style load-balancing loss.
+
+    On DTensors the routing, the scatter into expert buffers and the
+    gather back run on each rank's rows (``common.on_shards``: a row
+    routes on its own), the expert products as DTensor ops with the
+    experts split over the model axis."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.moe_top_k
+    cap = max(int(capacity_factor * s * k / e), 1)
+
+    if common.is_dtensor(x):
+        from types import SimpleNamespace
+
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        rows_pl = common.split_placements(x, {0: 0})
+        n_split = 1
+        for n, pl in zip(x.device_mesh.shape, rows_pl):
+            n_split *= n if pl == Shard(0) else 1
+        means = [Partial() if pl == Shard(0) else Replicate()
+                 for pl in rows_pl]
+        buf, gate, ids, rank, keep, density, router_prob = common.on_shards(
+            lambda xs, r: _dispatch(SimpleNamespace(router=r), cfg, xs, cap,
+                                    n_split),
+            (rows_pl,) * 5 + (means, means), (x, p.router),
+            (rows_pl, [Replicate()] * len(rows_pl)))
+    else:
+        buf, gate, ids, rank, keep, density, router_prob = _dispatch(
+            p, cfg, x, cap)
+    buf = common.shard(buf, common.BATCH, common.MODEL, None, None)
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, p.wg))
     h = h * torch.einsum("becd,edf->becf", buf, p.wi)
+    h = common.shard(h, common.BATCH, common.MODEL, None, None)
     out_buf = torch.einsum("becf,efd->becd", h, p.wo)
+    out_buf = common.shard(out_buf, common.BATCH, common.MODEL, None, None)
 
-    w = torch.where(keep, gate, 0.0)                      # (B, S, k)
-    gathered = out_buf[rows, ids, rank.clamp(max=cap - 1)]  # (B, S, k, d)
-    out = (w[..., None] * gathered.float()).sum(2).to(x.dtype)
+    if common.is_dtensor(out_buf):
+        out = common.on_shards(
+            lambda *t: _combine(*t, cap, x.dtype), rows_pl,
+            (out_buf, gate, ids, rank, keep), (rows_pl,) * 5)
+    else:
+        out = _combine(out_buf, gate, ids, rank, keep, cap, x.dtype)
     if hasattr(p, "shared"):
         out = out + mlp(p.shared, x, "swiglu")
-    density = F.one_hot(ids, e).float().mean((0, 1, 2))
-    router_prob = probs.mean((0, 1))
     aux = e * torch.sum(density * router_prob)
-    return out, aux
+    return common.shard(out, common.BATCH, None, None), aux

@@ -39,6 +39,11 @@ where ``vision_mask`` (B,S) is set; whisper's encoder reads
 ``audio_embeds`` (B,S_enc,d).  Whisper's decode reads the encoder's K/V
 from the cache's ``ek``/``ev``: as in the reference, nothing here builds
 them.
+
+Under a mesh (``common.set_mesh``), with parameters, batch and cache
+placed as DTensors (``launch.sharding``), the same entry points run
+sharded: activations are pinned where the reference pins them, and
+``decode_step`` runs in the reference's decode layout.
 """
 
 from __future__ import annotations
@@ -170,7 +175,7 @@ class Model(nn.Module):
     # ------------------------------------------------------- embeddings --
     def _embed(self, batch):
         cfg = self.cfg
-        x = self.embed[batch["tokens"]]
+        x = common.embedding(self.embed, batch["tokens"])
         if cfg.frontend == "vision" and "vision_embeds" in batch:
             # Modality stub: precomputed patch embeddings replace the
             # token embeddings where the frontend flags them.
@@ -179,7 +184,7 @@ class Model(nn.Module):
         if cfg.positional == "sinusoidal":
             x = x + common.sinusoid_at(batch["positions"],
                                        cfg.d_model).to(x.dtype)
-        return x
+        return common.shard(x, common.BATCH, None, None)
 
     def _positions(self, batch):
         if self.cfg.positional == "mrope":
@@ -219,6 +224,7 @@ class Model(nn.Module):
         frames = torch.arange(enc.shape[1], device=enc.device)
         enc = enc + common.sinusoid_at(frames.expand(enc.shape[:2]),
                                        cfg.d_model).to(enc.dtype)
+        enc = common.shard(enc, common.BATCH, None, None)
         for blk in self.encoder:
             enc, _ = _remat(self._block_apply, blk, enc, None, False)
         return self._norm(self.enc_norm, enc)
@@ -241,7 +247,7 @@ class Model(nn.Module):
 
     def _lm_head(self, x):
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x @ w
+        return common.shard(x @ w, common.BATCH, None, common.MODEL)
 
     # ------------------------------------------------------------- train --
     def train_logits(self, batch):
@@ -254,6 +260,10 @@ class Model(nn.Module):
         reference's per-layer ``jax.checkpoint``); the hybrid's blocks are
         not, as in the reference.  No kernel has a backward, so a model
         with ``attn_impl="flash"`` raises when asked for gradients."""
+        with common.sharded():
+            return self._train_logits(batch)
+
+    def _train_logits(self, batch):
         cfg = self.cfg
         x = self._embed(batch)
         positions = self._positions(batch)
@@ -323,7 +333,12 @@ class Model(nn.Module):
         positions3 (3,B,1) for M-RoPE).  Writes the token's state into
         ``cache`` in place (k/v, MLA's latent and rope key, the
         recurrences' conv tails and states) and returns (logits (B,1,V),
-        cache)."""
+        cache).  Under a mesh it runs in the decode layout
+        (``common.decode_layout``)."""
+        with common.sharded(), common.decode_layout():
+            return self._decode_step(cache, batch)
+
+    def _decode_step(self, cache, batch):
         cfg = self.cfg
         x = self._embed(batch)
         positions = self._positions(batch)
@@ -367,6 +382,20 @@ class Model(nn.Module):
                 x = x + self._ffn(blk, self._norm(blk.norm2, x))[0]
         x = self._norm(self.final_norm, x)
         return self._lm_head(x), cache
+
+    def shard_cache(self, cache: dict) -> dict:
+        """The serving sharding policy on a cache: batch over data, long
+        axes (sequence / d_inner) over model; a no-op without a mesh.  As
+        the reference's, it pins ``h`` as (L, B, w), the hybrid's rank
+        (``launch.sharding.cache_shardings`` places both ranks)."""
+        b, m = common.BATCH, common.MODEL
+        dims = {"k": (None, b, m, None, None), "v": (None, b, m, None, None),
+                "c": (None, b, m, None), "kr": (None, b, m, None),
+                "ek": (None, b, None, m, None),
+                "ev": (None, b, None, m, None),
+                "conv": (None, b, None, m), "h": (None, b, m)}
+        return {k: common.shard(v, *dims[k]) if k in dims else v
+                for k, v in cache.items()}
 
     @staticmethod
     def _write_state(cache, i, state):

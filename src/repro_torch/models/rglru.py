@@ -9,7 +9,8 @@ Block = temporal conv1d + gated linear recurrence:
 The reference runs the recurrence as the same two-level chunked scan as
 its Mamba block, padding with ``a = 1``, ``gated = 0`` (steps that leave
 ``h`` unchanged); here it is one torch loop over the sequence, with the
-same outputs and final state (see ``models/ssm.py``).
+same outputs and final state (see ``models/ssm.py``), and under a mesh
+it runs on each rank's shard of batch rows and channels.
 """
 
 from __future__ import annotations
@@ -72,29 +73,56 @@ def _conv1d(p, x, prev_tail=None):
 def _gates(p, xc):
     """xc: (B,S,w) -> a (B,S,w) f32, gated input (B,S,w) f32."""
     xf = xc.float()
-    r = torch.sigmoid((xc @ p.wa).float() + p.ba)
-    i = torch.sigmoid((xc @ p.wx).float() + p.bx)
+    # Under a mesh each product may come out as a partial sum over the
+    # model axis: reduced here, to the channels' split, before the bias
+    # (split like the channels) is added, since DTensor cannot turn that
+    # split bias into a partial sum.
+    r = torch.sigmoid(common.shard(xc @ p.wa, common.BATCH, None,
+                                   common.MODEL).float() + p.ba)
+    i = torch.sigmoid(common.shard(xc @ p.wx, common.BATCH, None,
+                                   common.MODEL).float() + p.bx)
     a = torch.exp(C_EXP * r * F.logsigmoid(p.lam))
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * xf)
     return a, gated
+
+
+def _time_loop(a, gated, h=None):
+    """h_t = a_t * h_{t-1} + gated_t over a's S steps from ``h`` (zeros
+    if None): (h, every h_t (B,S,w))."""
+    if h is None:
+        h = a.new_zeros((a.shape[0], a.shape[2]))
+
+    def step(h, t):
+        h = torch.addcmul(gated[:, t], a[:, t], h)
+        return h, h
+    return common.scan(step, h, a.shape[1])
 
 
 def rglru(p, cfg, x, state=None):
     """Full-sequence RG-LRU. x: (B,S,d); ``state`` = (conv tail (B,3,w),
     h (B,w) f32) to continue from, or None.  Returns (out, (conv tail,
     h))."""
-    b, s, _ = x.shape
     xs, z = x @ p.in_x, x @ p.in_z
+    xs = common.shard(xs, common.BATCH, None, common.MODEL)
+    z = common.shard(z, common.BATCH, None, common.MODEL)
     xc, new_tail = _conv1d(p, xs, None if state is None else state[0])
     a, gated = _gates(p, xc)
-    h = (a.new_zeros((b, a.shape[2])) if state is None else state[1])
-    hs = []
-    for t in range(s):
-        h = torch.addcmul(gated[:, t], a[:, t], h)
-        hs.append(h)
+    h = None if state is None else state[1]
+    if common.is_dtensor(a):
+        # Independent per batch row and channel: the time loop runs on
+        # each rank's shard.
+        seq = common.split_placements(a, {0: 0, 2: 2})
+        state_pl = common.split_placements(a, {0: 0, 2: 1})
+        args = (a, gated) + (() if h is None else (h,))
+        h, hs = common.on_shards(_time_loop, (state_pl, seq), args,
+                                 (seq, seq, state_pl)[:len(args)])
+    else:
+        h, hs = _time_loop(a, gated, h)
     # jax.nn.gelu defaults to the tanh approximation
-    y = (torch.stack(hs, dim=1) * F.gelu(z.float(), approximate="tanh"))
-    return y.to(x.dtype) @ p.out_proj, (new_tail, h)
+    y = (hs * F.gelu(z.float(), approximate="tanh")).to(x.dtype)
+    y = common.shard(y, common.BATCH, None, common.MODEL)
+    return common.shard(y @ p.out_proj, common.BATCH, None, None), \
+        (new_tail, h)
 
 
 def rglru_decode(p, cfg, x, state):
@@ -106,4 +134,5 @@ def rglru_decode(p, cfg, x, state):
     a, gated = _gates(p, xc)
     h = torch.addcmul(gated[:, 0], a[:, 0], h)
     y = h[:, None] * F.gelu(z.float(), approximate="tanh")
-    return y.to(x.dtype) @ p.out_proj, (new_tail, h)
+    return common.shard(y.to(x.dtype) @ p.out_proj, common.BATCH, None,
+                        None), (new_tail, h)

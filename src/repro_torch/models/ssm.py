@@ -11,6 +11,10 @@ and the loop gives the same outputs and the same final state.  As in the
 reference, the (B, d_inner, n) terms are formed inside each step from
 the (B, d_inner) / (B, n) per-step projections, so nothing of size S x
 d_inner x n is materialised.  Decode is a single recurrence step.
+
+Under a mesh the time loop (``common.scan``) runs on each rank's shard of
+batch rows and channels, its state laid out where the reference pins
+it; the products around it are pinned where the reference pins them.
 """
 
 from __future__ import annotations
@@ -83,7 +87,11 @@ def _step_projections(p, cfg, xc):
     """Per-step inputs of the recurrence. xc: (B,S,din) -> dt (B,S,din)
     f32, b_t/c_t (B,S,n) f32."""
     n, r = cfg.ssm_state, dt_rank(cfg)
-    proj = xc @ p.x_proj
+    # Under a mesh the product contracts the channels split over the
+    # model axis: reduced here, before dt's bias (split like the
+    # channels) is added, since DTensor cannot turn that split bias into
+    # a partial sum; every channel shard reads B and C whole anyway.
+    proj = common.shard(xc @ p.x_proj, common.BATCH, None, None)
     dt_r, b_t, c_t = proj.split([r, n, n], dim=-1)
     dt = F.softplus((dt_r @ p.dt_proj).float() + p.dt_bias)
     return dt, b_t.float(), c_t.float()
@@ -98,26 +106,51 @@ def _recurrence(a, h, dt_t, dtx_t, b_t, c_t):
     return h, (h @ c_t[..., None])[..., 0]
 
 
+def _time_loop(cfg, a, dt, dtx, b_t, c_t, h=None):
+    """The recurrence over dt's S steps from ``h`` (zeros if None):
+    (h, y (B,S,din))."""
+    if h is None:
+        h = dt.new_zeros((dt.shape[0], dt.shape[2], cfg.ssm_state))
+
+    def step(h, t):
+        return _recurrence(a, h, dt[:, t], dtx[:, t], b_t[:, t], c_t[:, t])
+    return common.scan(step, h, dt.shape[1])
+
+
 def mamba(p, cfg, x, state=None):
     """Full-sequence Mamba block. x: (B,S,d); ``state`` = (conv tail
     (B,K-1,din), h (B,din,n) f32) to continue from, or None.  Returns
     (out (B,S,d), (conv tail, h)) for decode continuation."""
-    b, s, _ = x.shape
     xs, z = x @ p.in_x, x @ p.in_z
+    xs = common.shard(xs, common.BATCH, None, common.MODEL)
+    z = common.shard(z, common.BATCH, None, common.MODEL)
     xc, new_tail = _conv1d(p, xs, None if state is None else state[0])
     dt, b_t, c_t = _step_projections(p, cfg, xc)
     xc_f = xc.float()
     dtx = dt * xc_f
     a = -torch.exp(p.a_log)                            # (din, n)
-    h = (xs.new_zeros((b, xs.shape[2], cfg.ssm_state), dtype=torch.float32)
-         if state is None else state[1])
-    ys = []
-    for t in range(s):
-        h, y = _recurrence(a, h, dt[:, t], dtx[:, t], b_t[:, t], c_t[:, t])
-        ys.append(y)
-    y = torch.stack(ys, dim=1) + p.d_skip * xc_f
+    h = None if state is None else common.shard(
+        state[1], common.BATCH, common.MODEL, None)
+    if common.is_dtensor(dt):
+        # Independent per batch row and channel: the time loop runs on
+        # each rank's shard, the state laid out (BATCH, MODEL, None) at
+        # every step, as the reference pins it (its §Perf H3: unpinned,
+        # the layouts alternate across steps).
+        seq = common.split_placements(dt, {0: 0, 2: 2})
+        state_pl = common.split_placements(dt, {0: 0, 2: 1})
+        rows = common.split_placements(dt, {0: 0})
+        args = (a, dt, dtx, b_t, c_t) + (() if h is None else (h,))
+        pls = (common.split_placements(dt, {2: 0}), seq, seq, rows,
+               rows) + (() if h is None else (state_pl,))
+        h, ys = common.on_shards(lambda *t: _time_loop(cfg, *t),
+                                 (state_pl, seq), args, pls)
+    else:
+        h, ys = _time_loop(cfg, a, dt, dtx, b_t, c_t, h)
+    y = ys + p.d_skip * xc_f
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p.out_proj, (new_tail, h)
+    y = common.shard(y, common.BATCH, None, common.MODEL)
+    return common.shard(y @ p.out_proj, common.BATCH, None, None), \
+        (new_tail, h)
 
 
 def mamba_decode(p, cfg, x, state):
@@ -133,4 +166,5 @@ def mamba_decode(p, cfg, x, state):
                        c_t[:, 0])
     y = y[:, None] + p.d_skip * xc_f
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p.out_proj, (new_tail, h)
+    return common.shard(y @ p.out_proj, common.BATCH, None, None), \
+        (new_tail, h)

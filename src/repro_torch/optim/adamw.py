@@ -10,6 +10,11 @@ no fused library optimizer.  Where the reference returns new pytrees,
 tensors it was given and returns them: at full width a second copy of
 the optimizer state would not fit beside the first.  It also clips and
 casts each gradient to f32 one leaf at a time, for the same reason.
+
+On DTensor leaves (a sharded step) each gradient is first placed as its
+parameter is, so the moments, masters and parameter update shard by
+shard; the global norm sums every shard (``full_tensor`` of the partial
+sums).
 """
 
 from __future__ import annotations
@@ -97,10 +102,23 @@ def compress_decompress(g: dict, err: dict) -> tuple[dict, dict]:
             {k: e for k, (_, e) in out.items()})
 
 
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (reducing partial sums); a tensor as is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
 @torch.no_grad()
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+    return torch.sqrt(sum(_full(torch.sum(torch.square(x.to(torch.float32))))
                           for x in tree.values()))
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient ``g`` with its parameter's placements (DTensors)."""
+    if hasattr(p, "placements") and tuple(g.placements) != tuple(
+            p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -110,6 +128,7 @@ def apply_updates(cfg: OptConfig, state: dict, params: dict, grads: dict,
     parameters (cast from the new masters to their own dtype), moments,
     masters and errors updated in place; ``stats`` holds ``grad_norm``
     and ``lr`` (0-d f32 tensors)."""
+    grads = {k: _placed_like(grads[k], p) for k, p in params.items()}
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)

@@ -48,7 +48,10 @@ def test_port_and_chip_smoke_import_without_jax():
               "repro_torch.checkpoint.checkpointer",
               "repro_torch.train.train_step", "repro_torch.train.trainer",
               "repro_torch.launch.train", "repro_torch.examples.train_lm",
-              "repro_torch.examples.serve_lm"):
+              "repro_torch.examples.serve_lm", "repro_torch.launch.mesh",
+              "repro_torch.launch.sharding", "repro_torch.launch.specs",
+              "repro_torch.launch.analytic", "repro_torch.launch.hlo_cost",
+              "repro_torch.launch.dryrun"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
