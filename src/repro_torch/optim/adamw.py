@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from repro_torch.runtime import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -128,30 +130,32 @@ def apply_updates(cfg: OptConfig, state: dict, params: dict, grads: dict,
     parameters (cast from the new masters to their own dtype), moments,
     masters and errors updated in place; ``stats`` holds ``grad_norm``
     and ``lr`` (0-d f32 tensors)."""
-    grads = {k: _placed_like(grads[k], p) for k, p in params.items()}
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
-                        max=1.0)
-    if cfg.compress_grads and err is None:
-        raise ValueError("compress_grads needs the error-feedback state")
+    with tracing.span("repro_torch.optim.update",
+                      device=state["step"].device):
+        grads = {k: _placed_like(grads[k], p) for k, p in params.items()}
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                            max=1.0)
+        if cfg.compress_grads and err is None:
+            raise ValueError("compress_grads needs the error-feedback state")
 
-    step = state["step"] + 1
-    lr = schedule(cfg, step)
-    b1c = 1 - _f32(cfg.b1, step.device) ** step.to(torch.float32)
-    b2c = 1 - _f32(cfg.b2, step.device) ** step.to(torch.float32)
+        step = state["step"] + 1
+        lr = schedule(cfg, step)
+        b1c = 1 - _f32(cfg.b1, step.device) ** step.to(torch.float32)
+        b2c = 1 - _f32(cfg.b2, step.device) ** step.to(torch.float32)
 
-    for k, p in params.items():
-        g = grads[k].to(torch.float32) * scale
-        if cfg.compress_grads:
-            g, err[k] = _compress_one(g, err[k])
-        m, v, master = state["m"][k], state["v"][k], state["master"][k]
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        del g
-        upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        upd += cfg.weight_decay * master
-        master.sub_(lr * upd)
-        del upd
-        p.copy_(master)
-    state["step"] = step
+        for k, p in params.items():
+            g = grads[k].to(torch.float32) * scale
+            if cfg.compress_grads:
+                g, err[k] = _compress_one(g, err[k])
+            m, v, master = state["m"][k], state["v"][k], state["master"][k]
+            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+            v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+            del g
+            upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            upd += cfg.weight_decay * master
+            master.sub_(lr * upd)
+            del upd
+            p.copy_(master)
+        state["step"] = step
     return params, state, err, {"grad_norm": gnorm, "lr": lr}

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.models import common
 from repro_torch.optim import adamw
+from repro_torch.runtime import tracing
 
 AUX_WEIGHT = 0.01
 
@@ -95,20 +96,35 @@ def _grads(params: dict) -> dict:
 def make_train_step(cfg, opt_cfg: adamw.OptConfig, microbatches: int = 1):
     loss_fn = make_loss_fn(cfg)
 
+    calls = 0
+
     def value_and_grad(model, params, batch):
         for p in params.values():
             p.grad = None
+        device = next(iter(params.values())).device
         with torch.enable_grad():
-            total, metrics = loss_fn(model, batch)
-            total.backward()
+            with tracing.span("repro_torch.train.forward", device=device):
+                total, metrics = loss_fn(model, batch)
+            with tracing.span("repro_torch.train.backward", device=device):
+                total.backward()
+                grads = _grads(params)
         metrics = {k: (v.detach() if torch.is_tensor(v)
                        else torch.tensor(v, dtype=torch.float32))
                    for k, v in metrics.items()}
-        return metrics, _grads(params)
+        return metrics, grads
 
     def train_step(model, opt_state, err, batch):
-        with common.sharded():
-            return _train_step(model, opt_state, err, batch)
+        nonlocal calls
+        calls += 1
+        device = next(model.parameters()).device
+        with tracing.span("repro_torch.train.step", step=calls - 1), \
+                common.sharded():
+            allocs = tracing.device_allocs(device)
+            out = _train_step(model, opt_state, err, batch)
+            if allocs is not None:
+                tracing.count("alloc.device_allocs",
+                              tracing.device_allocs(device) - allocs)
+            return out
 
     def _train_step(model, opt_state, err, batch):
         params = dict(model.named_parameters())
