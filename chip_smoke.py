@@ -6,10 +6,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. build     compile every CUDA kernel of the port from src/ (nvcc,
                sm_90a), one nvcc per source, all started together, print
-               flash_tc's, rmsnorm_vec's and K2's registers and spills,
-               and hold dispersed_gemm.tc_plan, flash_attention.flash_plan,
-               rmsnorm.rmsnorm_plan, engine_scan_plan and
-               cluster_scan_plan against the built kernels' tiles;
+               flash_tc's, rmsnorm_vec's, K2's and the fused AdamW's
+               registers and spills (AdamW's none), and hold
+               dispersed_gemm.tc_plan, flash_attention.flash_plan,
+               rmsnorm.rmsnorm_plan, engine_scan_plan, cluster_scan_plan
+               and adamw.TILE against the built kernels' tiles;
   2. kernels   hold each kernel against its plain-torch twin on the card at
                the main paths' shapes and a few edge shapes: K5 flash
                attention (bf16 on the tensor-core route: causal and not,
@@ -158,9 +159,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
                (2048, 3072) bf16) beside its
                bound, its plain twin and the library call computing the
                same function;
+     adamw     the optimizer's fused multi-tensor AdamW (two launches a
+               step) on phi3-mini's full leaf set at full width (291
+               leaves, 3.82 B parameters, bf16 parameters and gradients,
+               f32 state, ~61 GB): each leaf's new m, v, master and
+               parameter bitwise equal to the plain twin's given the
+               kernels' clip scale, grad_norm within 1e-6 of the plain
+               global norm, exactly two launches and one copy of the
+               table a step (the wrapper's counters); the step timed
+               (CUDA events, medians of
+               ADAMW_ROUNDS rounds in turns with the plain twin) beside
+               its 30-bytes-a-parameter bound;
   8. train     the training path (P7a): full-width phi3-mini-3.8b (bf16,
                seeded init, every earlier model freed) trained through
-               Trainer for 3 steps of 4 x 256 tokens, microbatches 1:
+               Trainer for 3 steps of 4 x 256 tokens, microbatches 1,
+               every optimizer step on the fused AdamW (counted):
                per step its loss (finite), grad norm, learning rate,
                wall, stream ms and peak memory (the first step's device
                ms and costliest device functions from torch.profiler),
@@ -179,7 +192,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                layer) held to the unsharded prefill, 8 greedy decode
                steps with the same tokens, one train step at full width
                and 8 of 32 layers with its loss and updated masters held
-               to the unsharded step's; launch.dryrun's plan of that
+               to the unsharded step's (both optimizer steps on the fused
+               AdamW, the sharded one on the local shards, counted);
+               launch.dryrun's plan of that
                train step on the same mesh (meta tensors, a fake process
                group, in a process of its own) counting the real step's
                FlopCounterMode FLOPs exactly, its bytes per device beside
@@ -230,6 +245,7 @@ from repro_torch.configs import get  # noqa: E402
 from repro_torch.core import (events, interpreter, isa, policies,  # noqa: E402
                               simulator)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import adamw as fadamw  # noqa: E402
 from repro_torch.kernels import cluster_scan as cs  # noqa: E402
 from repro_torch.kernels import engine_scan as es  # noqa: E402
 from repro_torch.kernels import dispersed_gemm as dg  # noqa: E402
@@ -267,6 +283,12 @@ TRACE_T = {"pathfinder": 1147, "jacobi2d": 247040, "somier": 1052674,
            "mha": 253120}
 # The cVRF the functional check runs: FIFO at this capacity
 TRACE_CHECK_CAPACITY = 8
+# The fused AdamW is timed in this many rounds, in turns with its twin
+ADAMW_ROUNDS = 3
+# Its least traffic a parameter: the bf16 gradient read twice (the norm,
+# then the update), f32 m, v and master read and written, bf16 written
+ADAMW_BYTES_PER_PARAM = 2 + 2 + 12 + 12 + 2
+ADAMW_STEP = 101                  # the step the check takes (bias corrections)
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
               torch.float32: 67e12}            # FP32 outside tensor cores
@@ -2766,6 +2788,145 @@ def phase_serving() -> dict:
 # TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_LEN tokens, microbatches 1
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 256, 3
 # Reduced f32 copy, one step on the card vs the CPU: loss and masters
+# ------------------------------------------------------------------- adamw --
+
+def check_adamw_plan() -> None:
+    """Hold adamw.TILE against the built kernels' tile."""
+    tile = fadamw.built_tile(torch.cuda.current_device())
+    log("build", adamw_tile=json.dumps(tile))
+    check(all(tile[k] == v for k, v in fadamw.TILE.items()),
+          f"adamw: TILE {fadamw.TILE} differs from the built tile {tile}")
+
+
+def _adamw_leaf(i: int, shape, dtype) -> tuple:
+    """Leaf i's step inputs, the same on every call: (parameter,
+    gradient, m, v, master); master N(0, 0.02), the parameter its bf16
+    copy, gradients N(0, 1e-3) (a global norm of ~60, so the clip
+    engages), m N(0, 1e-4), v U(0, 1e-8)."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+    master = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    grad = (torch.randn(shape, generator=gen, device="cuda")
+            * 1e-3).to(dtype)
+    m = torch.randn(shape, generator=gen, device="cuda") * 1e-4
+    v = torch.rand(shape, generator=gen, device="cuda") * 1e-8
+    return master.to(dtype, copy=True), grad, m, v, master
+
+
+def _zero_adamw_counts() -> None:
+    fadamw.adamw_step.launches = 0
+    fadamw.adamw_cuda.launches = 0
+    fadamw.adamw_cuda.uploads = 0
+
+
+def _adamw_counts() -> dict:
+    """Optimizer steps by route, the fused kernels' launches and the
+    table's copies since the last _zero_adamw_counts."""
+    return dict(fadamw.adamw_step.by_route(),
+                **fadamw.adamw_cuda.by_route(),
+                uploads=fadamw.adamw_cuda.uploads)
+
+
+def _fused_counts(steps: int) -> dict:
+    """What _adamw_counts reads after ``steps`` fused steps."""
+    return dict(fused=steps, plain=0, norm=steps, update=steps,
+                uploads=steps)
+
+
+def phase_adamw() -> dict:
+    """The fused AdamW on phi3-mini's full leaf set at full width: one
+    step through the kernels held leaf by leaf to the plain twin given
+    the kernels' scale, then the step timed beside its bound and the
+    plain twin (module docstring, [adamw])."""
+    _free()
+    cfg = get(ARCH)
+    shapes = {k: (tuple(p.shape), p.dtype) for k, p in
+              Model(cfg, device="meta").named_parameters()}
+    opt = OptConfig()
+    params, grads, m, v, master = {}, {}, {}, {}, {}
+    for i, (k, (shape, dtype)) in enumerate(shapes.items()):
+        params[k], grads[k], m[k], v[k], master[k] = _adamw_leaf(
+            i, shape, dtype)
+    n = sum(p.numel() for p in params.values())
+    step = torch.tensor(ADAMW_STEP, dtype=torch.int32, device="cuda")
+    lr = tadamw.schedule(opt, step)
+    b1c = 1 - torch.tensor(opt.b1, device="cuda") ** step.float()
+    b2c = 1 - torch.tensor(opt.b2, device="cuda") ** step.float()
+    check(fadamw.adamw_route(opt, params, grads, m, v, master) == "fused",
+          "adamw: phi3-mini's leaves do not take the fused route")
+    log("adamw", leaves=len(params), params=n,
+        state_gb=round(sum(t.numel() * t.element_size() for d in (
+            params, grads, m, v, master) for t in d.values()) / 1e9, 3))
+
+    gnorm, scale = fadamw.adamw_cuda(opt, params, grads, m, v, master, lr,
+                                     b1c, b2c)
+    torch.cuda.synchronize()
+    plain_norm = float(fadamw.global_norm(grads))
+    rel = abs(float(gnorm) - plain_norm) / plain_norm
+    scale_equal = torch.equal(scale, fadamw.clip_scale(gnorm,
+                                                       opt.clip_norm))
+    equal, first_bad, max_abs = 0, None, 0.0
+    for i, (k, (shape, dtype)) in enumerate(shapes.items()):
+        p0, g0, m0, v0, w0 = _adamw_leaf(i, shape, dtype)
+        fadamw.update_plain(opt, {k: p0}, {k: g0}, {k: m0}, {k: v0},
+                            {k: w0}, scale, lr, b1c, b2c)
+        pairs = ((params[k], p0), (m[k], m0), (v[k], v0), (master[k], w0))
+        same = all(torch.equal(a, b) for a, b in pairs)
+        max_abs = max([max_abs] + [float((a.float() - b.float()).abs().max())
+                                   for a, b in pairs])
+        equal += same
+        if not same and first_bad is None:
+            first_bad = k
+        del p0, g0, m0, v0, w0, pairs
+    out = dict(leaves=len(params), params=n, equal_leaves=equal,
+               max_abs_err=max_abs, grad_norm=float(gnorm),
+               plain_grad_norm=plain_norm, grad_norm_rel=rel,
+               scale=float(scale), scale_equal=scale_equal)
+    log("adamw", check="full_leaf_set", first_unequal=first_bad, **out)
+    check(equal == len(params) and scale_equal and rel <= 1e-6,
+          f"adamw: {equal} of {len(params)} leaves equal the plain twin "
+          f"(first unequal {first_bad}), scale equal {scale_equal}, "
+          f"grad_norm {float(gnorm)} vs {plain_norm}")
+
+    def fused_step():
+        fadamw.adamw_cuda(opt, params, grads, m, v, master, lr, b1c, b2c)
+
+    def plain_step():
+        fadamw.adamw_plain(opt, params, grads, m, v, master, lr, b1c, b2c)
+
+    # the kernels' launches and the table's copies in 3 steps, counted by
+    # the wrapper, and the host's issue
+    _zero_adamw_counts()
+    for _ in range(3):
+        fused_step()
+    counts = _adamw_counts()
+    check(counts == _fused_counts(3),
+          f"adamw: 3 steps made {counts}, want {_fused_counts(3)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_step()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    samples = {"fused": [], "plain": []}
+    fns = {"fused": (fused_step, 3), "plain": (plain_step, 1)}
+    for r in range(ADAMW_ROUNDS):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            fn, iters = fns[name]
+            samples[name].append(cuda_ms(fn, warmup=1, iters=iters))
+    ms = statistics.median(samples["fused"])
+    plain_ms = statistics.median(samples["plain"])
+    bound = n * ADAMW_BYTES_PER_PARAM / HBM_BYTES_PER_S * 1e3
+    timing = dict(ms=ms, samples_ms=samples["fused"], plain_ms=plain_ms,
+                  plain_samples_ms=samples["plain"], bound_ms=bound,
+                  bound_by="bytes", share_of_bound=bound / ms,
+                  counts_in_3_steps=counts, host_issue_ms=issue_ms)
+    log("adamw", timing="full_leaf_set", **{
+        k: json.dumps(v) if isinstance(v, dict) else v
+        for k, v in timing.items()})
+    del params, grads, m, v, master
+    _free()
+    return dict(out, **timing)
+
+
 TRAIN_TOL = 1e-4
 # The checkpoint's directory (listed in .gitignore, removed at the end)
 TRAIN_CKPT = ROOT / ".train_ckpt"
@@ -2865,7 +3026,13 @@ def train_steps(cfg) -> dict:
     log("train", **out)
     steps: list = []
     _timed_steps(tr, steps)
+    _zero_adamw_counts()
     hist = tr.run(state=state)["history"]
+    out["adamw_counts"] = _adamw_counts()
+    log("train", adamw_counts=json.dumps(out["adamw_counts"]))
+    check(out["adamw_counts"] == _fused_counts(len(hist)),
+          f"train: the optimizer's {len(hist)} steps made "
+          f"{out['adamw_counts']}, want {_fused_counts(len(hist))}")
     for h, s in zip(hist, steps):
         log("train", step=h["step"], loss=h["loss"],
             grad_norm=h["grad_norm"], lr=h["lr"], **s)
@@ -3127,7 +3294,9 @@ def shard_train(mesh, device: str = "cuda", cfg=None) -> dict:
     batch = _train_batch(cfg, device)
     step = make_train_step(cfg, OptConfig(), 1)
     opt = tadamw.init_state(dict(model.named_parameters()))
+    _zero_adamw_counts()
     _, opt, _, met = step(model, opt, None, batch)
+    unsharded_counts = _adamw_counts()
     want_loss = float(met["loss"])
     want_masters = {k: v.cpu() for k, v in opt["master"].items()}
     del opt, met
@@ -3143,8 +3312,10 @@ def shard_train(mesh, device: str = "cuda", cfg=None) -> dict:
         torch.cuda.reset_peak_memory_stats()
     with common.mesh_context(mesh):
         opt = tadamw.init_state(dict(model.named_parameters()))
+        _zero_adamw_counts()
         with FlopCounterMode(display=False) as counter:
             _, opt, _, met = step(model, opt, None, placed)
+        sharded_counts = _adamw_counts()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
     loss = float(_whole(met["loss"]))
     master_err = max(float((_whole(v).cpu() - want_masters[k]).abs().max())
@@ -3152,6 +3323,8 @@ def shard_train(mesh, device: str = "cuda", cfg=None) -> dict:
     out = dict(loss=loss, want_loss=want_loss,
                loss_rel_err=abs(loss - want_loss) / abs(want_loss),
                master_max_abs_err=master_err,
+               adamw_counts=dict(unsharded=unsharded_counts,
+                                 sharded=sharded_counts),
                flops=counter.get_total_flops(),
                max_memory_allocated=peak)
     del model, opt, met, placed
@@ -3265,7 +3438,8 @@ def phase_shard(card: str) -> dict:
                 equal=train["loss"] == train["want_loss"],
                 max_abs=train["master_max_abs_err"],
                 loss=train["loss"], want_loss=train["want_loss"],
-                loss_rel_err=train["loss_rel_err"])
+                loss_rel_err=train["loss_rel_err"],
+                adamw_counts=json.dumps(train["adamw_counts"]))
         finally:
             dist.destroy_process_group()
         check(serve["launches"] == serve["layers"],
@@ -3278,6 +3452,10 @@ def phase_shard(card: str) -> dict:
         check(train["loss_rel_err"] <= SHARD_TOL_LOSS
               and train["master_max_abs_err"] <= SHARD_TOL_MASTER,
               f"shard: train step {train}")
+        check(train["adamw_counts"] == dict(unsharded=_fused_counts(1),
+                                            sharded=_fused_counts(1)),
+              f"shard: optimizer steps {train['adamw_counts']}, want one "
+              "fused step each")
 
         cfg8 = dataclasses.replace(get(ARCH), num_layers=SHARD_TRAIN_LAYERS,
                                    name=f"{ARCH}-{SHARD_TRAIN_LAYERS}l")
@@ -3812,11 +3990,18 @@ def main() -> int:
         log("build", **entry)
     for entry in ptxas_summary(logs["cluster_scan"], "cluster_"):
         log("build", **entry)
+    adamw_build = ptxas_summary(logs["adamw"], "adamw")
+    for entry in adamw_build:
+        log("build", **entry)
+    check(not logs["adamw"] or (len(adamw_build) == 2 and not any(
+        e["spill_stores"] or e["spill_loads"] for e in adamw_build)),
+        f"adamw: the build spills or lacks a kernel: {adamw_build}")
     check_tc_plan()
     check_flash_plan()
     check_norm_plan()
     check_engine_plan()
     check_cluster_plan()
+    check_adamw_plan()
 
     flash_err = phase_kernels()
     gemm_errs = phase_gemm_kernels()
@@ -3871,7 +4056,8 @@ def main() -> int:
         flash_timing = phase_timing()
         gemm = phase_gemm_timing()
         norm = phase_norm_timing()
-    phase_train(smi)
+        adamw_timing = phase_adamw()
+    train = phase_train(smi)
     shard = phase_shard(smi)
     shard_launches = shard["serve"]["launches"]
 
@@ -3947,6 +4133,23 @@ def main() -> int:
         engine_entry("engine_l1", "l1", "resnet50_l10_unfolded", engine,
                      engine_twin),
         cluster_entry(cluster),
+        # the optimizer's fused step replaces no TPU kernel; the launches
+        # are the main path's, [train]'s Trainer steps (steps by route,
+        # launches by kernel, the table's copies); [shard]'s unsharded
+        # and sharded steps beside them
+        dict(name="adamw", route="cuda",
+             source="src/repro_torch/kernels/csrc/adamw.cu",
+             replaces="none (src/repro/optim/adamw.py apply_updates is "
+                      "plain jnp)",
+             launches=train["adamw_counts"]["norm"]
+             + train["adamw_counts"]["update"],
+             launches_by_route=train["adamw_counts"],
+             shard_launches_by_route=shard["train"]["adamw_counts"],
+             shape=[adamw_timing["leaves"], adamw_timing["params"]],
+             dtype="bfloat16",
+             **{k: adamw_timing[k] for k in (
+                 "max_abs_err", "ms", "bound_ms", "bound_by", "plain_ms",
+                 "grad_norm_rel", "counts_in_3_steps", "host_issue_ms")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,17 +4,25 @@ compression (int8) — the port of the reference's ``optim/adamw.py``.
 
 The optimizer is a set of plain functions over dicts of tensors keyed by
 the model's parameter names (``dict(model.named_parameters())``), with
-the reference's arithmetic: plain torch ops under ``torch.no_grad()``,
-no fused library optimizer.  Where the reference returns new pytrees,
+the reference's arithmetic.  Where the reference returns new pytrees,
 ``apply_updates`` writes the new moments, masters and parameters into the
 tensors it was given and returns them: at full width a second copy of
-the optimizer state would not fit beside the first.  It also clips and
-casts each gradient to f32 one leaf at a time, for the same reason.
+the optimizer state would not fit beside the first.
+
+The step itself is ``kernels.adamw.adamw_step``: on a card's tensors,
+DTensor shards included, the fused multi-tensor kernels (the norm, then
+every leaf's update, two launches a step; ``compress_grads`` raises
+there); on CPU and ``meta`` tensors the plain twin, plain torch ops under
+``torch.no_grad()`` that clip and cast each gradient to f32 one leaf at a
+time.
 
 On DTensor leaves (a sharded step) each gradient is first placed as its
 parameter is, so the moments, masters and parameter update shard by
-shard; the global norm sums every shard (``full_tensor`` of the partial
-sums).
+shard.
+
+While the tracer is on, the span ``repro_torch.optim.update`` counts
+``optim.params`` (the parameters updated) and ``optim.fused_params``
+(those the fused kernels updated).
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import adamw as fused
+from repro_torch.kernels.adamw import global_norm  # noqa: F401
 from repro_torch.runtime import tracing
 
 
@@ -42,7 +52,12 @@ class OptConfig:
 
 
 def _f32(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    """``x`` as an f32 tensor on ``device``.  A Python number is filled in
+    on the device: ``as_tensor`` would copy it up from the host and wait
+    for the stream, stalling the host until the device has drained."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def schedule(cfg: OptConfig, step) -> torch.Tensor:
@@ -104,17 +119,6 @@ def compress_decompress(g: dict, err: dict) -> tuple[dict, dict]:
             {k: e for k, (_, e) in out.items()})
 
 
-def _full(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor's whole value (reducing partial sums); a tensor as is."""
-    return x.full_tensor() if hasattr(x, "full_tensor") else x
-
-
-@torch.no_grad()
-def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(_full(torch.sum(torch.square(x.to(torch.float32))))
-                          for x in tree.values()))
-
-
 def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """The gradient ``g`` with its parameter's placements (DTensors)."""
     if hasattr(p, "placements") and tuple(g.placements) != tuple(
@@ -133,9 +137,6 @@ def apply_updates(cfg: OptConfig, state: dict, params: dict, grads: dict,
     with tracing.span("repro_torch.optim.update",
                       device=state["step"].device):
         grads = {k: _placed_like(grads[k], p) for k, p in params.items()}
-        gnorm = global_norm(grads)
-        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
-                            max=1.0)
         if cfg.compress_grads and err is None:
             raise ValueError("compress_grads needs the error-feedback state")
 
@@ -143,19 +144,12 @@ def apply_updates(cfg: OptConfig, state: dict, params: dict, grads: dict,
         lr = schedule(cfg, step)
         b1c = 1 - _f32(cfg.b1, step.device) ** step.to(torch.float32)
         b2c = 1 - _f32(cfg.b2, step.device) ** step.to(torch.float32)
-
-        for k, p in params.items():
-            g = grads[k].to(torch.float32) * scale
-            if cfg.compress_grads:
-                g, err[k] = _compress_one(g, err[k])
-            m, v, master = state["m"][k], state["v"][k], state["master"][k]
-            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-            del g
-            upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-            upd += cfg.weight_decay * master
-            master.sub_(lr * upd)
-            del upd
-            p.copy_(master)
+        gnorm, route = fused.adamw_step(
+            cfg, params, grads, state["m"], state["v"], state["master"], lr,
+            b1c, b2c, _compress_one if cfg.compress_grads else None, err)
+        if tracing.on():
+            n = sum(w.numel() for w in state["master"].values())
+            tracing.count("optim.params", n)
+            tracing.count("optim.fused_params", n if route == "fused" else 0)
         state["step"] = step
     return params, state, err, {"grad_norm": gnorm, "lr": lr}

@@ -46,11 +46,16 @@ with torch.profiler.record_function("repro_torch.tracing.warm"), \
     pass
 
 
+def on() -> bool:
+    """Whether spans and counters are kept: a torch profiler records."""
+    return torch.autograd._profiler_enabled()
+
+
 def span(name: str, *, step: int | None = None, device=None):
     """A span named ``name``; ``step`` numbers a root span (its children
     take their root's); with ``device`` on a CUDA device the span is
     also timed on the device's clock."""
-    if not torch.autograd._profiler_enabled():
+    if not on():
         return _NOOP
     return _span(name, step, device)
 
@@ -96,8 +101,7 @@ def count(name: str, n) -> None:
 def device_allocs(device) -> int | None:
     """The caching allocator's ``cudaMalloc`` count so far on ``device``
     while the tracer is on and ``device`` is a CUDA device, else None."""
-    if not torch.autograd._profiler_enabled() or \
-            torch.device(device).type != "cuda":
+    if not on() or torch.device(device).type != "cuda":
         return None
     return torch.cuda.memory_stats(device)["num_device_alloc"]
 

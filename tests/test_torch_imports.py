@@ -51,7 +51,7 @@ def test_port_and_chip_smoke_import_without_jax():
               "repro_torch.examples.serve_lm", "repro_torch.launch.mesh",
               "repro_torch.launch.sharding", "repro_torch.launch.specs",
               "repro_torch.launch.analytic", "repro_torch.launch.hlo_cost",
-              "repro_torch.launch.dryrun"):
+              "repro_torch.launch.dryrun", "repro_torch.kernels.adamw"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -106,8 +106,8 @@ def test_kernel_build_needs_nvcc_and_names_libraries_by_source():
 def test_every_kernel_source_gets_its_own_library():
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["cluster_scan", "dispersed_gemm", "engine_scan",
-                     "flash_attention", "rmsnorm"]
+    assert names == ["adamw", "cluster_scan", "dispersed_gemm",
+                     "engine_scan", "flash_attention", "rmsnorm"]
     paths = {_build.library_path(n) for n in names}
     assert len(paths) == len(names)
     for name in names:

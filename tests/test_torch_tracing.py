@@ -91,8 +91,13 @@ def test_step_spans_nest_and_carry_the_step(microbatches):
             <= root["end_ns"]
     for a, b in zip(rec[1:], rec[2:]):
         assert a["end_ns"] <= b["start_ns"]
-    # on the CPU: no events, no allocator counter
-    assert all(s["device_ms"] is None and s["counters"] == {} for s in rec)
+    # on the CPU: no events, no allocator counter; the optimizer counts
+    # its parameters, none of them through the fused kernels
+    assert all(s["device_ms"] is None for s in rec)
+    assert all(s["counters"] == {} for s in rec[:-1])
+    n = sum(p.numel() for p in _tiny(1)[0].parameters())
+    assert rec[-1]["counters"] == {"optim.params": n,
+                                   "optim.fused_params": 0}
 
 
 def test_span_clock_is_the_profilers():
